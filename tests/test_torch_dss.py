@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from transport_se_tpu.config import Config
+from transport_se_tpu.grid.cubesphere import build_grid
 from transport_se_tpu.model import core as jcore
 from transport_se_tpu_torch.convert import (model_from_numpy,
                                             state_from_numpy,
@@ -96,20 +97,39 @@ def test_dss_scale_minmax_t_matches_parts(models):
     x = _field(5, (24, 16, nq * nk))
     dp = 1.0 + np.abs(_field(6, (24, 16, nk)))
     rsp = np.array(jm.rspheremp).reshape(24, 16)
-    jout, jmn, jmx, _ = jm.tables.dss_scale_minmax_t(
+    jout, jmn, jmx, jlap = jm.tables.dss_scale_minmax_t(
         jnp.asarray(x), jnp.asarray(rsp), jnp.asarray(dp), nq)
-    tout, tmn, tmx = tm.tables.dss_scale_minmax_t(
-        torch.from_numpy(x), torch.from_numpy(rsp), torch.from_numpy(dp), nq)
+    tout, tmn, tmx, tlap = tm.tables.dss_scale_minmax_t(
+        torch.from_numpy(x), torch.from_numpy(rsp), torch.from_numpy(dp), nq,
+        lap=True)
     for a, b in ((tout, jout), (tmn, jmn), (tmx, jmx)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    # the gather mode leaves the first Laplacian to the caller
+    assert jlap is None and tlap is None
 
 
-@pytest.mark.parametrize("mode", ["face", "segsum"])
+@pytest.mark.parametrize("mode", ["segsum"])
 def test_unported_modes_raise(models, mode):
     _, tm = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DssTables(tm.tables.part_idx, tm.tables.part_mask, tm.tables.nbr,
                   mode=mode)
+
+
+def test_face_mode_requires_raster_order(models):
+    jm, _ = models
+    g = build_grid(2, order="gilbert")
+    with pytest.raises(ValueError, match="raster"):
+        DssTables.from_numpy(g.part_idx, g.part_mask, g.nbr, "cpu",
+                             mode="face", ne=2)
+    arrays = dict(jax_arrays(jm), part_idx=g.part_idx,
+                  part_mask=g.part_mask, nbr=g.nbr)
+    face_cfg = Config(**{**CFG.__dict__, "dss_mode": "face"})
+    with pytest.raises(ValueError, match="raster"):
+        model_from_numpy(face_cfg, arrays, "cpu")
+    with pytest.raises(ValueError, match="face tables"):
+        DssTables(torch.as_tensor(g.part_idx), torch.as_tensor(g.part_mask),
+                  torch.as_tensor(g.nbr), mode="face")
 
 
 def test_state_round_trip():

@@ -1,0 +1,226 @@
+"""The port's face DSS tables and the plain versions of its face kernels
+(K4 face DSS with epilogues, K5 bound prep, K6 neighbor min/max) == the
+JAX package's `build_face_tables` and Pallas face kernels (interpret mode on
+CPU), at ne = 2 and 4 in f64.
+
+The sums, min/max and epilogues are bitwise equal: the port adds each
+slot's partner terms in the Pallas kernel's order.  The Laplacian epilogue
+agrees to 1e-13 of its max, the bound of the weak-Laplacian kernel
+(test_torch_euler.py).  The JAX kernels pad lanes to 128 and return the
+first nq*nk; the port does not pad.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from transport_se_tpu.grid.cubesphere import build_grid
+from transport_se_tpu.ops import dss_face as jdf
+from transport_se_tpu.ops import pallas_dss
+from transport_se_tpu.ops.dss import DssTables as JaxTables
+from transport_se_tpu_torch.ops import dss_face as tdf
+from transport_se_tpu_torch.ops.dss import DssTables
+from transport_se_tpu_torch.ops.euler import metric_pack
+
+torch.set_num_threads(1)
+
+NQ, NK = 3, 8
+L = NQ * NK
+
+
+@functools.cache
+def _tables(ne):
+    """(grid, JAX gather/face tables, port gather/face tables, JAX
+    lap_arrays) of one ne."""
+    g = build_grid(ne, order="raster")
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    met = metric_pack(t(g.Dinv), t(g.metdet), t(g.rmetdet), t(g.spheremp))
+    tg = DssTables.from_numpy(g.part_idx, g.part_mask, g.nbr, "cpu")
+    tf = DssTables.from_numpy(g.part_idx, g.part_mask, g.nbr, "cpu",
+                              mode="face", ne=ne, met=met, deriv=t(g.deriv))
+    lap_arrays = dict(Dinv=jnp.asarray(g.Dinv),
+                      spheremp=jnp.asarray(g.spheremp), deriv=g.deriv)
+    return (g, JaxTables.from_grid(g, mode="gather"),
+            JaxTables.from_grid(g, mode="face"), tg, tf, lap_arrays)
+
+
+@pytest.fixture(scope="module", params=[2, 4])
+def grids(request):
+    return _tables(request.param)
+
+
+def _inputs(E, seed):
+    """x, avg [E,16,L]; rsp [E,16]; dp [E,16,NK], from one seed."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((E, 16, L)),
+            rng.standard_normal((E, 16, L)),
+            rng.uniform(0.5, 2.0, (E, 16)),
+            rng.uniform(0.5, 2.0, (E, 16, NK)))
+
+
+def _eq(got, want):
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_build_face_tables_matches_jax(grids):
+    g = grids[0]
+    want = jdf.build_face_tables(g)
+    got = tdf.build_face_tables(g.part_idx, g.part_mask, g.ne)
+    assert set(got) == set(tdf.FACE_FIELDS)
+    for k in tdf.FACE_FIELDS:
+        w = np.asarray(getattr(want, k))
+        assert got[k].shape == w.shape, k
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    ft = grids[4].face
+    for k in tdf.FACE_FIELDS:
+        assert ft.ne == g.ne
+        assert getattr(ft, k).dtype == (torch.bool if k == "diag_mask"
+                                        else torch.int64), k
+        np.testing.assert_array_equal(getattr(ft, k).numpy(), got[k])
+
+
+def test_kernel_tables_cover_partners(grids):
+    """The role table holds exactly each slot's coincident slots; the
+    neighbor table exactly the grid's point-sharing neighbor elements."""
+    g, ft = grids[0], grids[4].face
+    E = g.nelem
+    part = ft.part.numpy().reshape(E * 16, 3)
+    for fs in range(E * 16):
+        want = sorted(int(p) for p, m in zip(g.part_idx[fs],
+                                             g.part_mask[fs]) if m)
+        assert sorted(int(p) for p in part[fs] if p >= 0) == want, fs
+    nbr = ft.nbr.numpy()
+    assert (nbr[:, 0] == np.arange(E)).all()
+    for e in range(E):
+        assert set(nbr[e]) == set(g.nbr[e]), e
+
+
+@pytest.mark.parametrize("with_avg", [False, True])
+def test_dss_scale_t_bitwise(grids, with_avg):
+    g, _, jf, _, tf, _ = grids
+    x, avg, rsp, _ = _inputs(g.nelem, 0)
+    avg = avg if with_avg else None
+    want = jf.dss_scale_t(jnp.asarray(x), jnp.asarray(rsp),
+                          avg=None if avg is None else jnp.asarray(avg))
+    got = tf.dss_scale_t(torch.from_numpy(x), torch.from_numpy(rsp),
+                         avg=None if avg is None else torch.from_numpy(avg))
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("with_avg", [False, True])
+def test_dss_scale_minmax_t_bitwise(grids, with_avg):
+    g, _, jf, _, tf, _ = grids
+    x, avg, rsp, dp = _inputs(g.nelem, 1)
+    avg = avg if with_avg else None
+    want = jf.dss_scale_minmax_t(
+        jnp.asarray(x), jnp.asarray(rsp), jnp.asarray(dp), NQ,
+        avg=None if avg is None else jnp.asarray(avg))
+    got = tf.dss_scale_minmax_t(
+        torch.from_numpy(x), torch.from_numpy(rsp), torch.from_numpy(dp), NQ,
+        avg=None if avg is None else torch.from_numpy(avg))
+    assert want[3] is None and got[3] is None
+    for a, b in zip(got[:3], want[:3]):
+        _eq(a, b)
+
+
+def test_lap_epilogue_matches_jax(grids):
+    g, _, jf, _, tf, lap_arrays = grids
+    x, _, rsp, dp = _inputs(g.nelem, 2)
+    want = jf.dss_scale_minmax_t(jnp.asarray(x), jnp.asarray(rsp),
+                                 jnp.asarray(dp), NQ, lap_arrays=lap_arrays)
+    got = tf.dss_scale_minmax_t(torch.from_numpy(x), torch.from_numpy(rsp),
+                                torch.from_numpy(dp), NQ, lap=True)
+    for a, b in zip(got[:3], want[:3]):
+        _eq(a, b)
+    w = np.asarray(want[3])
+    np.testing.assert_allclose(got[3].numpy(), w, rtol=0,
+                               atol=1e-13 * np.abs(w).max())
+
+
+def test_minmax_prep_and_neighbor_minmax_bitwise(grids):
+    g, _, jf, _, tf, _ = grids
+    x, _, _, dp = _inputs(g.nelem, 3)
+    jmn, jmx = jf.minmax_prep(jnp.asarray(x), jnp.asarray(dp), NQ)
+    tmn, tmx = tf.minmax_prep(torch.from_numpy(x), torch.from_numpy(dp), NQ)
+    _eq(tmn, jmn)
+    _eq(tmx, jmx)
+    jgn, jgx = jf.neighbor_minmax(jmn, jmx)
+    tgn, tgx = tf.neighbor_minmax(tmn, tmx)
+    _eq(tgn, jgn)
+    _eq(tgx, jgx)
+    # and the XLA shifted-copy form the plain version ports
+    xgn, xgx = jdf.neighbor_minmax_face(jmn, jmx, jf.face)
+    _eq(tgn, xgn)
+    _eq(tgx, xgx)
+
+
+def test_jax_row_blocks_bitwise(monkeypatch):
+    """Several Pallas row blocks per face (by < ne) on the JAX side."""
+    g, _, jf, _, tf, _ = _tables(4)
+    monkeypatch.setattr(pallas_dss, "DSS_BLOCK_CAP", 100000)
+    assert pallas_dss._pick_by(g.ne, 128) < g.ne
+    x, avg, rsp, dp = _inputs(g.nelem, 4)
+    J = jnp.asarray
+    T = torch.from_numpy
+    want = jf.dss_scale_minmax_t(J(x), J(rsp), J(dp), NQ, avg=J(avg))
+    got = tf.dss_scale_minmax_t(T(x), T(rsp), T(dp), NQ, avg=T(avg))
+    for a, b in zip(got[:3], want[:3]):
+        _eq(a, b)
+    _eq(tf.dss_scale_t(T(x), T(rsp)), jf.dss_scale_t(J(x), J(rsp)))
+    jgn, jgx = pallas_dss.neighbor_minmax_pallas(want[1], want[2], jf.face)
+    tgn, tgx = tf.neighbor_minmax(got[1], got[2])
+    _eq(tgn, jgn)
+    _eq(tgx, jgx)
+
+
+def test_face_matches_gather(grids):
+    """Face and gather DSS sum the same terms in other orders (the JAX
+    test's bound, test_dss_face.py); min/max are exact."""
+    g, _, _, tg, tf, _ = grids
+    x, _, _, dp = _inputs(g.nelem, 5)
+    x = torch.from_numpy(x)
+    np.testing.assert_allclose(tf.dss_sum_t(x).numpy(),
+                               tg.dss_sum_t(x).numpy(), rtol=0, atol=1e-13)
+    mn, mx = tg.minmax_prep(x, torch.from_numpy(dp), NQ)
+    for a, b in zip(tf.neighbor_minmax(mn, mx), tg.neighbor_minmax(mn, mx)):
+        assert torch.equal(a, b)
+
+
+def test_dss_multiplicity(grids):
+    """DSS of a constant-1 field counts coincident slots: 2 on edges,
+    4 at regular corners, 3 at the 8 cube vertices, 1 inside."""
+    g, _, jf, tg, tf, _ = grids
+    ones = torch.ones((g.nelem, 16, 1), dtype=torch.float64)
+    m = tf.dss_sum_t(ones)[..., 0].numpy()
+    np.testing.assert_array_equal(m, tg.dss_sum_t(ones)[..., 0].numpy())
+    np.testing.assert_array_equal(
+        m, np.asarray(jf.dss_sum_t(jnp.asarray(ones.numpy())))[..., 0])
+    vals, counts = np.unique(m.reshape(-1), return_counts=True)
+    assert set(vals.astype(int)) == {1, 2, 3, 4}
+    assert counts[list(vals).index(3.0)] == 24
+
+
+def test_wrappers_check_their_inputs(grids):
+    g, tf = grids[0], grids[4]
+    x, avg, rsp, dp = (torch.from_numpy(a) for a in _inputs(g.nelem, 6))
+    ft = tf.face
+    with pytest.raises(ValueError, match="lap fusion requires dp"):
+        tdf.dss_face(x, ft, rsp=rsp, met=tf.met, deriv=tf.deriv)
+    with pytest.raises(ValueError, match="avg fusion requires rsp"):
+        tdf.dss_face(x, ft, avg=avg)
+    with pytest.raises(ValueError, match="minmax fusion requires rsp"):
+        tdf.dss_face(x, ft, dp=dp)
+    with pytest.raises(ValueError, match="not contiguous"):
+        tdf.dss_face(x.transpose(0, 1).contiguous().transpose(0, 1), ft)
+    with pytest.raises(ValueError, match="multiple of nk"):
+        tdf.dss_face(x[..., :-1].contiguous(), ft, rsp=rsp, dp=dp)
+    with pytest.raises(TypeError, match="dtype"):
+        tdf.minmax_prep(x, dp.float(), NQ)
+    with pytest.raises(ValueError, match="lanes"):
+        tdf.minmax_prep(x, dp, NQ + 1)
+    with pytest.raises(ValueError, match="shape"):
+        tdf.neighbor_minmax(x[:, 0].contiguous(),
+                             x[:, 1, :-1].contiguous(), ft)

@@ -2,7 +2,9 @@
 kernel (K2) == the JAX package's Pallas kernels (interpret mode on CPU).
 
 The JAX side is `fused_advect_limit(..., transposed=True, interpret=True)`
-(its `_euler_kernel3`) and `laplace_wk_t`, fed the same numpy inputs.  The
+(its `_euler_kernel3`, and in f64 also its alternative forms
+`_euler_kernel` and `_euler_kernel2`) and `laplace_wk_t`, fed the same
+numpy inputs.  The
 two sum the advection divergence in another order (the JAX kernel as a
 block-diagonal matmul), and the JAX kernel sums sumc with jnp.sum where the
 port uses the pairwise tree, so they agree to roundoff, and the limiter's
@@ -19,6 +21,7 @@ import torch
 from transport_se_tpu.config import Config
 from transport_se_tpu.model import core as jcore
 from transport_se_tpu.model import dcmip
+from transport_se_tpu.ops import pallas_euler
 from transport_se_tpu.ops import sphere_ops as jso
 from transport_se_tpu.ops.pallas_euler import (fused_advect_limit,
                                                laplace_wk_t)
@@ -96,12 +99,11 @@ def _stage(cfg, jm, tm, ins, s):
     return dp, bih, nu
 
 
-@functools.cache
-def _run_both(dtype, s):
-    """(JAX outputs, port outputs) of stage s, as numpy."""
+def _jax_stage(dtype, s):
+    """The JAX fused_advect_limit's outputs of stage s, as numpy, through
+    the kernel form pallas_euler.KERNEL_VERSION selects."""
     cfg, jm, tm, ins = _setup(dtype)
     dp, bih, nu = _stage(cfg, jm, tm, ins, s)
-    max_iter = cfg.limiter_iter_cap or 15
     j = fused_advect_limit(
         jnp.asarray(ins["Qt"]), (jnp.asarray(ins["u"]), jnp.asarray(ins["v"])),
         jnp.asarray(dp), jnp.asarray(ins["divdp"]), jnp.asarray(ins["qmin"]),
@@ -109,14 +111,25 @@ def _run_both(dtype, s):
         rhs_viss=3 if s == 2 else 0,
         bih=None if bih is None else jnp.asarray(bih),
         bih_mode=2 if s == 2 else 0, nu_coef=nu, dp0=jm.dp0ref,
-        transposed=True, nq=cfg.qsize, interpret=True, max_iter=max_iter)
+        transposed=True, nq=cfg.qsize, interpret=True,
+        max_iter=cfg.limiter_iter_cap or 15)
+    return [np.asarray(a) for a in j]
+
+
+@functools.cache
+def _run_both(dtype, s):
+    """(JAX outputs, port outputs) of stage s, as numpy."""
+    cfg, jm, tm, ins = _setup(dtype)
+    dp, bih, nu = _stage(cfg, jm, tm, ins, s)
+    max_iter = cfg.limiter_iter_cap or 15
+    j = _jax_stage(dtype, s)
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
     got = euler.fused_advect_limit(
         t(ins["Qt"]), (t(ins["u"]), t(ins["v"])), t(dp), t(ins["divdp"]),
         t(ins["qmin"]), t(ins["qmax"]), tm.met, tm.deriv, DT,
         bih=None if bih is None else t(bih), nu_coef=nu, dp0=tm.dp0ref,
         max_iter=max_iter)
-    return [np.asarray(a) for a in j], [g.numpy() for g in got]
+    return j, [g.numpy() for g in got]
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2])
@@ -136,6 +149,25 @@ def test_fused_advect_limit_matches_jax(setup, stage):
     # reassociation as well as sumc's: measured within 4 ulp of the bound
     # scale (a bound at the edge of relaxation may relax on one side only,
     # which moves it by those same few ulp)
+    eps = np.finfo(out.dtype).eps
+    for got, want in ((mn, jmin), (mx, jmax)):
+        np.testing.assert_allclose(got, want, rtol=4 * eps,
+                                   atol=4 * eps * np.abs(want).max())
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2])
+@pytest.mark.parametrize("version", [1, 2])
+def test_fused_advect_limit_matches_jax_kernel_versions(version, stage,
+                                                        monkeypatch):
+    """The one CUDA stage kernel also stands for the JAX package's other
+    forms of it, K8 `_euler_kernel` (version 1, rolls) and K9
+    `_euler_kernel2` (version 2, broadcast/tree), which
+    pallas_euler.KERNEL_VERSION selects; f64, the bounds of
+    test_fused_advect_limit_matches_jax."""
+    monkeypatch.setattr(pallas_euler, "KERNEL_VERSION", version)
+    jout, jmin, jmax = _jax_stage("f64", stage)
+    _, (out, mn, mx) = _run_both("f64", stage)
+    np.testing.assert_allclose(out, jout, rtol=1e-11, atol=1e-9)
     eps = np.finfo(out.dtype).eps
     for got, want in ((mn, jmin), (mx, jmax)):
         np.testing.assert_allclose(got, want, rtol=4 * eps,

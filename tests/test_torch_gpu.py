@@ -30,12 +30,19 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _model(dtype, dev):
+def _model(dtype, dev, dss_mode="gather"):
+    order = {"elem_order": "raster"} if dss_mode == "face" else {}
     cfg = Config(ne=4, nlev=16, qsize=3, tstep=1200.0, vcoord="dcmip16",
                  test_case="dcmip1-1", nu_q=6e16, dtype=dtype,
-                 disable_diagnostics=True,
+                 disable_diagnostics=True, dss_mode=dss_mode, **order,
                  **({"limiter_iter_cap": 4} if dtype == "f32" else {}))
     return build_model(cfg, dev)
+
+
+def _named(counts, want):
+    """The counts of the kernels named in want, each with its plain
+    version's (which must be 0)."""
+    return {k: counts[k] for n in want for k in (n, n + "_plain")}
 
 
 def _close(got, want):
@@ -81,9 +88,72 @@ def test_subcycle_kernels_match_plain_and_count(cuda, dtype):
     got = make_subcycle_fn(m)(Qt, 0)[0]
     counts = counters.snapshot()
     want = make_subcycle_fn(m, plain=True)(Qt, 0)[0]
-    assert counts == {"fused_advect_limit": 9, "laplace_wk_t": 3,
-                      "remap_q_ppm_t": 1, "fused_advect_limit_plain": 0,
-                      "laplace_wk_t_plain": 0, "remap_q_ppm_t_plain": 0}
+    launches = {"fused_advect_limit": 9, "laplace_wk_t": 3,
+                "remap_q_ppm_t": 1}
+    assert _named(counts, launches) == {
+        **launches, **{k + "_plain": 0 for k in launches}}
+    _close(got, want)
+
+
+# DCMIP 1-1's wind basis DSSes its 6 terms once, when the subcycle function
+# is made; a face subcycle then runs 4 face DSS per step
+FACE_SUBCYCLE = {"fused_advect_limit": 9, "laplace_wk_t": 0,
+                 "remap_q_ppm_t": 1, "dss_face": 4 * 3 + 6,
+                 "minmax_prep": 1, "neighbor_minmax": 6}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_face_kernels_match_plain(cuda, dtype):
+    """K4 in each variant the main path takes, K5 and K6."""
+    m = _model(dtype, cuda, "face")
+    cfg, tb = m.cfg, m.tables
+    E, nq, nk = m.lon.shape[0], cfg.qsize, cfg.nlev
+    Qt = _tp(initial_qdp(m), E, nq * nk)
+    avg = Qt.flip(0).contiguous()
+    rsp = m.rspheremp.reshape(E, 16)
+    _, _, _, _, _, divp = build_wind_basis(m).eval(
+        torch.full((), 1200.0, dtype=m.dtype, device=cuda))
+    dp = (m.dp0col[None, None, :] - 600.0 * divp).contiguous()
+    variants = [dict(), dict(dp=dp), dict(dp=dp, lap=True), dict(avg=avg),
+                dict(avg=avg, dp=dp)]
+    for kw in variants:
+        if "dp" in kw:
+            args = (Qt, rsp, kw["dp"], nq)
+            opt = dict(avg=kw.get("avg"), lap=kw.get("lap", False))
+            got = tb.dss_scale_minmax_t(*args, **opt)
+            want = tb.dss_scale_minmax_t(*args, **opt, plain=True)
+        else:
+            got = (tb.dss_scale_t(Qt, rsp, avg=kw.get("avg")),)
+            want = (tb.dss_scale_t(Qt, rsp, avg=kw.get("avg"), plain=True),)
+        for g, w in zip(got, want):
+            if w is None:
+                assert g is None
+            else:
+                _close(g, w)
+    mn, mx = tb.minmax_prep(Qt, dp, nq)
+    for g, w in zip((mn, mx), tb.minmax_prep(Qt, dp, nq, plain=True)):
+        assert torch.equal(g, w)
+    for g, w in zip(tb.neighbor_minmax(mn, mx),
+                    tb.neighbor_minmax(mn, mx, plain=True)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_face_subcycle_kernels_match_plain_and_count(cuda, dtype):
+    m = _model(dtype, cuda, "face")
+    Qt = _tp(initial_qdp(m), m.lon.shape[0], m.cfg.qsize * m.cfg.nlev)
+    counters.reset()
+    got = make_subcycle_fn(m)(Qt, 0)[0]
+    counts = counters.snapshot()
+    assert _named(counts, FACE_SUBCYCLE) == {
+        **FACE_SUBCYCLE, **{k + "_plain": 0 for k in FACE_SUBCYCLE}}
+    counters.reset()
+    want = make_subcycle_fn(m, plain=True)(Qt, 0)[0]
+    counts = counters.snapshot()
+    # plain=True reaches the plain version of every kernel
+    assert _named(counts, FACE_SUBCYCLE) == {
+        **{k: 0 for k in FACE_SUBCYCLE},
+        **{k + "_plain": n for k, n in FACE_SUBCYCLE.items()}}
     _close(got, want)
 
 

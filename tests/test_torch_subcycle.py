@@ -36,6 +36,7 @@ SLICE_MODULES = (
     "transport_se_tpu_torch.config", "transport_se_tpu_torch.convert",
     "transport_se_tpu_torch.counters", "transport_se_tpu_torch.timing",
     "transport_se_tpu_torch.ops.sphere_ops", "transport_se_tpu_torch.ops.dss",
+    "transport_se_tpu_torch.ops.dss_face",
     "transport_se_tpu_torch.ops.euler", "transport_se_tpu_torch.ops.ppm",
     "transport_se_tpu_torch.ops.remap", "transport_se_tpu_torch.model.dcmip",
     "transport_se_tpu_torch.model.core",

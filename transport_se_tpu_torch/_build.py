@@ -25,7 +25,9 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("euler.cu", "ppm.cu")
+SOURCES = ("euler.cu", "ppm.cu", "dss.cu")
+# included by the sources; part of the library's hash
+HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -49,6 +51,12 @@ ENTRIES = {
     "tse_laplace_wk_t": [P] * 4 + [I, I, P],
     # qdp dp_star dp_ref | out | E nq nk alg | stream
     "tse_remap_q_ppm_t": [P] * 4 + [I, I, I, I, P],
+    # x part rsp avg dp met deriv | out qmin qmax lap | E L nk flags | stream
+    "tse_dss_face": [P] * 11 + [I, I, I, I, P],
+    # x dp | qmin qmax | E L nk | stream
+    "tse_minmax_prep": [P] * 4 + [I, I, I, P],
+    # qmin qmax nbr | gmin gmax | E L | stream
+    "tse_neighbor_minmax": [P] * 5 + [I, I, P],
 }
 
 _lock = threading.Lock()
@@ -68,7 +76,7 @@ def find_nvcc() -> str:
 
 def source_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 

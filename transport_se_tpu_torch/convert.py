@@ -25,17 +25,21 @@ TABLE_ARRAYS = ("part_idx", "part_mask", "nbr")
 
 def model_from_numpy(cfg: Config, arrays: dict, device) -> Model:
     """The port's Model from numpy arrays: the MODEL_ARRAYS fields (cast to
-    cfg's dtype) and the DssTables' part_idx/part_mask/nbr."""
+    cfg's dtype) and the DssTables' part_idx/part_mask/nbr.  With
+    cfg.dss_mode "face" the tables also carry the face tables, built from
+    part_idx/part_mask; these must then be a raster-order grid's, as
+    Config requires (ValueError otherwise)."""
     missing = [k for k in MODEL_ARRAYS + TABLE_ARRAYS if k not in arrays]
     if missing:
         raise KeyError(f"model arrays missing: {missing}")
     dt = cfg.np_dtype
     t = {k: torch.as_tensor(np.array(arrays[k], dtype=dt), device=device)
          for k in MODEL_ARRAYS}
+    met = metric_pack(t["Dinv"], t["metdet"], t["rmetdet"], t["spheremp"])
     tables = DssTables.from_numpy(
         np.asarray(arrays["part_idx"]), np.asarray(arrays["part_mask"]),
-        np.asarray(arrays["nbr"]), device, mode=cfg.dss_mode)
-    met = metric_pack(t["Dinv"], t["metdet"], t["rmetdet"], t["spheremp"])
+        np.asarray(arrays["nbr"]), device, mode=cfg.dss_mode, ne=cfg.ne,
+        met=met, deriv=t["deriv"])
     return Model(cfg=cfg, hv=hvcoord(cfg), tables=tables, met=met, **t)
 
 

@@ -6,7 +6,8 @@ resets the counts, drives the main path and reads them back to show which
 implementation the path went through.
 """
 
-KERNELS = ("fused_advect_limit", "laplace_wk_t", "remap_q_ppm_t")
+KERNELS = ("fused_advect_limit", "laplace_wk_t", "remap_q_ppm_t",
+           "dss_face", "minmax_prep", "neighbor_minmax")
 
 COUNTS = {name: 0 for k in KERNELS for name in (k, k + "_plain")}
 

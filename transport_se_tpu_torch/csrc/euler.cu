@@ -24,88 +24,25 @@
 // converged columns are fixed points of the clip-redistribute body, so
 // this equals the JAX package's group while_loop and its full unroll.
 // Every 16-point sum uses the _sum16 pairwise tree; every 4x4 derivative
-// sums its terms in the JAX roll order.  Built with
+// sums its terms in the JAX roll order (common.cuh).  Built with
 // --fmad=false so each product and sum rounds as in the plain version.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr double kRRearth = 1.0 / 6.376e6;
-constexpr int kThreads = 128;
+using tse::ddx_rot;
+using tse::ddy_rot;
+using tse::kRRearth;
+using tse::lap_wk;
+using tse::sum16;
 
-template <typename T>
-__device__ __forceinline__ T sum16(const T (&x)[16]) {
-  const T s0 = (x[0] + x[4]) + (x[8] + x[12]);
-  const T s1 = (x[1] + x[5]) + (x[9] + x[13]);
-  const T s2 = (x[2] + x[6]) + (x[10] + x[14]);
-  const T s3 = (x[3] + x[7]) + (x[11] + x[15]);
-  return (s0 + s1) + (s2 + s3);
-}
+constexpr int kThreads = 128;
 
 template <typename T>
 __device__ __forceinline__ T clampv(T x, T lo, T hi) {
   T y = x < lo ? lo : x;
   return y > hi ? hi : y;
-}
-
-// d/dx at point (l, j): sum_i D[l][i] x[(i, j)] (TR: D[i][l]), in the
-// JAX roll order: terms i = l+d mod 4, d = 0..3.
-template <typename T, bool TR>
-__device__ __forceinline__ T ddx_rot(const T* D, const T (&x)[16], int l,
-                                     int j) {
-  T acc = T(0);
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    const int i = (l + d) & 3;
-    const T t = (TR ? D[i * 4 + l] : D[l * 4 + i]) * x[i * 4 + j];
-    acc = d == 0 ? t : acc + t;
-  }
-  return acc;
-}
-
-// d/dy at point (i, l): sum_j D[l][j] x[(i, j)] (TR: D[j][l]), same order.
-template <typename T, bool TR>
-__device__ __forceinline__ T ddy_rot(const T* D, const T (&x)[16], int i,
-                                     int l) {
-  T acc = T(0);
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    const int j = (l + d) & 3;
-    const T t = (TR ? D[j * 4 + l] : D[l * 4 + j]) * x[i * 4 + j];
-    acc = d == 0 ? t : acc + t;
-  }
-  return acc;
-}
-
-// laplace_sphere_wk of q with the folded metric S = spheremp*Dinv*Dinv^T
-// (rows s00, s01, s11); the JAX _lap_wk.
-template <typename T>
-__device__ __forceinline__ void lap_wk(const T* D, const T (&q)[16],
-                                       const T* s00, const T* s01,
-                                       const T* s11, T (&out)[16]) {
-  T w1[16], w2[16];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int p = a * 4 + b;
-      const T v1 = ddx_rot<T, false>(D, q, a, b);
-      const T v2 = ddy_rot<T, false>(D, q, a, b);
-      w1[p] = s00[p] * v1 + s01[p] * v2;
-      w2[p] = s01[p] * v1 + s11[p] * v2;
-    }
-  }
-  const T c = -T(kRRearth * kRRearth);
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      out[a * 4 + b] = c * (ddx_rot<T, true>(D, w1, a, b) +
-                            ddy_rot<T, true>(D, w2, a, b));
-    }
-  }
 }
 
 template <typename T, bool BIH>

@@ -13,7 +13,15 @@ three forward-Euler stages with dt/2 and rhs_multiplier 0, 1, 2 then the
 stage 2 only; the one-step wind lag; the remap with the last step's
 divdp_proj.
 
-Only the DSS gather mode and limiter 8 are ported; the standard-layout
+Both DSS modes of the T-layout pipeline are ported.  In face mode (the
+production configuration, `perf_config`) every stage's DSS is the face
+kernel K4 with its fused epilogues: stage 0 and 1 also emit the next
+stage's bound prep, stage 1 also the first biharmonic Laplacian (so no
+weak-Laplacian launch), stage 2 fuses the time average and, except on the
+last step of the subcycle, the next step's stage-0 bounds; the bound prep
+and the neighbor min/max run K5 and K6.  In gather mode the DSS, bound
+prep and neighbor min/max are plain PyTorch gathers and stage 2 runs the
+weak-Laplacian kernel K2.  Only limiter 8 is ported; the standard-layout
 pipeline, diagnostics and the unbounded PPM search raise
 NotImplementedError.
 """
@@ -133,16 +141,20 @@ def _kernels(plain: bool):
 
 def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
                  rhs_multiplier: int, pre_minmax=None, next_dp=None,
-                 avg_t=None, plain=False):
+                 next_lap=False, pre_lap=None, avg_t=None, plain=False):
     """One stage: Qt' = DSS[limited(Qt - dt*div(Vstar Qt) + hypervis)].
 
     Qt [E,16,L]; divdp/uv [E,16,k]; qmin/qmax [E,L].  pre_minmax: this
     stage's per-element bound prep if the previous stage produced it;
     next_dp [E,16,k]: produce the NEXT stage's bound prep from this stage's
-    output.  avg_t: fuse qdp_time_avg into the output.  plain: run the
-    kernels' plain PyTorch versions (test-only).
-    Returns (Qt', qmin', qmax', next_minmax-or-None)."""
+    output, and with next_lap also the first biharmonic Laplacian of
+    output/next_dp (face mode only; the gather mode gives None).  pre_lap:
+    that Laplacian, for stage 2.  avg_t: fuse qdp_time_avg into the
+    output.  plain: run the kernels' plain PyTorch versions (test-only).
+    Returns (Qt', qmin', qmax', ((next_qmin, next_qmax), next_lap) or
+    None)."""
     cfg = m.cfg
+    tb = m.tables
     E, _, L = Qt.shape
     nq, nk = cfg.qsize, cfg.nlev
     advect, laplace, _ = _kernels(plain)
@@ -150,36 +162,40 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
     rsp16 = m.rspheremp.reshape(E, 16)
 
     if pre_minmax is None:
-        qmin_l, qmax_l = m.tables.minmax_prep(Qt, dp_t, nq)
+        qmin_l, qmax_l = tb.minmax_prep(Qt, dp_t, nq, plain=plain)
     else:
         qmin_l, qmax_l = pre_minmax
 
     bih, nu_coef = None, 0.0
     if rhs_multiplier == 0:
-        qmin, qmax = m.tables.neighbor_minmax(qmin_l, qmax_l)
+        qmin, qmax = tb.neighbor_minmax(qmin_l, qmax_l, plain=plain)
     elif rhs_multiplier == 1:
         qmin = torch.minimum(qmin, qmin_l)
         qmax = torch.maximum(qmax, qmax_l)
     else:
         rhs_viss = 3
-        qmin, qmax = m.tables.neighbor_minmax(qmin_l, qmax_l)
+        qmin, qmax = tb.neighbor_minmax(qmin_l, qmax_l, plain=plain)
         if cfg.nu_q > 0:
             # biharmonic: laplace -> DSS -> rspheremp here; the second
-            # Laplacian and the tendency run inside the fused kernel
+            # Laplacian and the tendency run inside the fused kernel.  The
+            # face mode's stage-1 DSS already produced the first Laplacian.
             nu_coef = float(-rhs_viss * dt * cfg.nu_q)
-            Q_t = (Qt.reshape(E, 16, nq, nk)
-                   / dp_t[:, :, None, :]).reshape(E, 16, L)
-            bih = m.tables.dss_scale_t(laplace(Q_t, m.met, m.deriv), rsp16)
+            if pre_lap is None:
+                Q_t = (Qt.reshape(E, 16, nq, nk)
+                       / dp_t[:, :, None, :]).reshape(E, 16, L)
+                pre_lap = laplace(Q_t, m.met, m.deriv)
+            bih = tb.dss_scale_t(pre_lap, rsp16, plain=plain)
 
     out_t, qmin, qmax = advect(
         Qt, uv_t, dp_t, divdp_t, qmin, qmax, m.met, m.deriv, float(dt),
         bih=bih, nu_coef=nu_coef, dp0=m.dp0ref,
         max_iter=cfg.limiter_iter_cap or MAX_ITER)
     if next_dp is not None:
-        Qt_new, nmn, nmx = m.tables.dss_scale_minmax_t(
-            out_t, rsp16, next_dp, nq, avg=avg_t)
-        return Qt_new, qmin, qmax, (nmn, nmx)
-    return m.tables.dss_scale_t(out_t, rsp16, avg=avg_t), qmin, qmax, None
+        Qt_new, nmn, nmx, lap = tb.dss_scale_minmax_t(
+            out_t, rsp16, next_dp, nq, avg=avg_t, lap=next_lap, plain=plain)
+        return Qt_new, qmin, qmax, ((nmn, nmx), lap)
+    Qt_new = tb.dss_scale_t(out_t, rsp16, avg=avg_t, plain=plain)
+    return Qt_new, qmin, qmax, None
 
 
 def advect_rk2_t_parts(m: Model, Qt, uv_t, divdp_t, divdp_proj_t, dt_q,
@@ -187,25 +203,28 @@ def advect_rk2_t_parts(m: Model, Qt, uv_t, divdp_t, divdp_proj_t, dt_q,
     """T-layout RK2 advection (one tracer step) from precomputed wind parts
     (uv_t = the mean-flux (u*dp, v*dp) pair, each [E,16,k]).
 
-    Each stage's DSS also produces the NEXT stage's bound prep; the third
-    stage fuses qdp_time_avg and, given next_step_dp, the next tracer
-    step's stage-0 prep.  Returns (Qt', divdp_proj_t, next_minmax)."""
+    Each stage's DSS also produces the NEXT stage's bound prep; stage 1's
+    also the first biharmonic Laplacian (face mode); the third stage fuses
+    qdp_time_avg and, given next_step_dp, the next tracer step's stage-0
+    prep.  Returns (Qt', divdp_proj_t, next_minmax-or-None)."""
     E = Qt.shape[0]
     dt2 = dt_q / 2.0
     dp0_t = m.dp0col[None, None, :].expand(E, 16, m.cfg.nlev)
     dp1_t = dp0_t - 1.0 * dt2 * divdp_proj_t
     dp2_t = dp0_t - 2.0 * dt2 * divdp_proj_t
     zmin = Qt.new_zeros((E, Qt.shape[2]))
-    Qt1, qmin, qmax, mm1 = euler_step_t(
+    Qt1, qmin, qmax, nb1 = euler_step_t(
         m, Qt, zmin, zmin, divdp_t, divdp_proj_t, uv_t, dt2, 0,
         pre_minmax=pre_minmax0, next_dp=dp1_t, plain=plain)
-    Qt2, qmin, qmax, mm2 = euler_step_t(
+    Qt2, qmin, qmax, nb2 = euler_step_t(
         m, Qt1, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt2, 1,
-        pre_minmax=mm1, next_dp=dp2_t, plain=plain)
-    Qt3, qmin, qmax, mm3 = euler_step_t(
+        pre_minmax=nb1[0], next_dp=dp2_t, next_lap=m.cfg.nu_q > 0,
+        plain=plain)
+    Qt3, qmin, qmax, nb3 = euler_step_t(
         m, Qt2, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt2, 2,
-        pre_minmax=mm2, avg_t=Qt, next_dp=next_step_dp, plain=plain)
-    return Qt3, divdp_proj_t, mm3
+        pre_minmax=nb2[0], pre_lap=nb2[1], avg_t=Qt, next_dp=next_step_dp,
+        plain=plain)
+    return Qt3, divdp_proj_t, None if nb3 is None else nb3[0]
 
 
 def vertical_remap_t(m: Model, Qt, divdp_proj_t, dt_remap, plain=False):
@@ -256,9 +275,10 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
 
     One call advances cfg.rsplit tracer steps and performs one vertical
     remap (prim_driver_mod.F90:788-796) on T-layout state [E,16,q*k];
-    nstep counts tracer steps.  plain=True runs the kernels' plain PyTorch
-    versions on any device: a test-only switch for holding the kernels
-    against them on the card."""
+    nstep counts tracer steps.  plain=True runs the plain PyTorch versions
+    of every kernel (K1-K3 and, in face mode, the DSS, bound prep and
+    neighbor min/max) on any device: a test-only switch for holding the
+    kernels against them on the card."""
     check_ported(m.cfg, diagnostics, io_layout)
     from .wind_basis import build_wind_basis
     cfg = m.cfg
@@ -274,11 +294,12 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
     else:
         urw[1::2] = 2.0 / cfg.qsplit
     ur_w = torch.as_tensor(urw, dtype=m.dtype, device=m.device)
-    wb = build_wind_basis(m)
+    wb = build_wind_basis(m, plain=plain)
 
     def subcycle_t(Qt, nstep: int):
         E = Qt.shape[0]
-        dp0_t = m.dp0col[None, None, :].expand(E, 16, cfg.nlev)
+        # contiguous: the next step's stage-0 dp of the bound-prep kernels
+        dp0_t = m.dp0col[None, None, :].expand(E, 16, cfg.nlev).contiguous()
         divdp_proj_t = None
         mm0 = None
         for i in range(cfg.rsplit):

@@ -69,8 +69,9 @@ class WindBasis:
         return u, v, u * dp0, v * dp0, d, p
 
 
-def build_wind_basis(m) -> WindBasis:
-    """Precompute the factored wind basis for m.cfg.test_case.
+def build_wind_basis(m, plain: bool = False) -> WindBasis:
+    """Precompute the factored wind basis for m.cfg.test_case (plain:
+    the DSS of the divergence terms runs its plain version).
 
     dcmip1-1 terms (lon' = lon - omega t, C = OMEGA0*REARTH/(BS*ptop)):
       1: (U0 cos(lat), 0)                 x 1    x 1
@@ -149,7 +150,7 @@ def build_wind_basis(m) -> WindBasis:
         g2d = so.divergence_sphere(vfield, m.deriv, m.Dinv, m.metdet,
                                    m.rmetdet)
         g2d_t = g2d.reshape(E, 1, 16).transpose(1, 2)
-        gp2d_t = m.tables.dss_scale_t(g2d_t * sp16, rsp16)
+        gp2d_t = m.tables.dss_scale_t(g2d_t * sp16, rsp16, plain=plain)
         cols["u2d"].append(as_f(u2))
         cols["v2d"].append(as_f(v2))
         cols["fk"].append(as_f(fk))
