@@ -143,12 +143,12 @@ def test_smoke_namelists_are_the_published_configs(run):
     """chip_smoke.py's CLI runs read as the verification configurations
     of the published norms (config.py dcmip1*_ne*)."""
     import chip_smoke
-    from transport_se_tpu import config as jconfig
-    from transport_se_tpu.io.namelist import config_from_namelist
+    from transport_se_tpu_torch import config as tconfig
+    from transport_se_tpu_torch.io.namelist import config_from_namelist
     test, ne, tstep, nu_q, days = chip_smoke.CLI_RUNS[run][:5]
     rs = config_from_namelist(chip_smoke.namelist(test, ne, tstep, nu_q,
                                                   days))
-    preset = getattr(jconfig, f"dcmip{test[-3]}{test[-1]}_ne{ne}")
+    preset = getattr(tconfig, f"dcmip{test[-3]}{test[-1]}_ne{ne}")
     assert rs.cfg == preset(statefreq=rs.cfg.statefreq)
     assert rs.output_frequency == days and rs.output_timeunits == 1
 

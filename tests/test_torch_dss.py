@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from transport_se_tpu.config import Config
+from transport_se_tpu.config import Config as JConfig
 from transport_se_tpu.grid.cubesphere import build_grid
 from transport_se_tpu.model import core as jcore
 from transport_se_tpu_torch.convert import (model_from_numpy,
@@ -16,10 +16,13 @@ from transport_se_tpu_torch.convert import (model_from_numpy,
 from transport_se_tpu_torch.model import core as tcore
 from transport_se_tpu_torch.ops.dss import DssTables
 
+from test_torch_host import port_config
+
 torch.set_num_threads(1)
 
-CFG = Config(ne=2, nlev=8, qsize=3, tstep=1200.0, vcoord="dcmip8",
-             test_case="dcmip1-1", dtype="f64", elem_order="raster")
+JCFG = JConfig(ne=2, nlev=8, qsize=3, tstep=1200.0, vcoord="dcmip8",
+               test_case="dcmip1-1", dtype="f64", elem_order="raster")
+CFG = port_config(JCFG)
 ARRAYS = ("lon", "lat", "deriv", "D", "Dinv", "metdet", "rmetdet",
           "spheremp", "rspheremp", "etam", "etai", "hyai", "hybi",
           "dp0col", "dp0ref")
@@ -35,7 +38,7 @@ def jax_arrays(jm):
 
 @pytest.fixture(scope="module")
 def models():
-    jm = jcore.build_model(CFG)
+    jm = jcore.build_model(JCFG)
     return jm, model_from_numpy(CFG, jax_arrays(jm), "cpu")
 
 
@@ -147,7 +150,7 @@ def test_face_mode_requires_raster_order(models):
                              mode="face", ne=2)
     arrays = dict(jax_arrays(jm), part_idx=g.part_idx,
                   part_mask=g.part_mask, nbr=g.nbr)
-    face_cfg = Config(**{**CFG.__dict__, "dss_mode": "face"})
+    face_cfg = dataclasses.replace(CFG, dss_mode="face")
     with pytest.raises(ValueError, match="raster"):
         model_from_numpy(face_cfg, arrays, "cpu")
     with pytest.raises(ValueError, match="face tables"):

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from transport_se_tpu.config import Config
+from transport_se_tpu.config import Config as JConfig
 from transport_se_tpu.model import core as jcore
 from transport_se_tpu.model import dcmip
 from transport_se_tpu.ops import pallas_euler
@@ -28,6 +28,8 @@ from transport_se_tpu.ops.pallas_euler import (fused_advect_limit,
 from transport_se_tpu_torch.convert import model_from_numpy
 from transport_se_tpu_torch.ops import euler
 from transport_se_tpu_torch.ops import sphere_ops as tso
+
+from test_torch_host import port_config
 
 torch.set_num_threads(1)
 
@@ -39,16 +41,17 @@ NU_Q = 6e16
 
 
 def _cfg(dtype):
-    return Config(ne=2, nlev=8, qsize=3, tstep=1200.0, vcoord="dcmip8",
-                  test_case="dcmip1-1", dtype=dtype, nu_q=NU_Q,
-                  **({"limiter_iter_cap": 4} if dtype == "f32" else {}))
+    return JConfig(ne=2, nlev=8, qsize=3, tstep=1200.0, vcoord="dcmip8",
+                   test_case="dcmip1-1", dtype=dtype, nu_q=NU_Q,
+                   **({"limiter_iter_cap": 4} if dtype == "f32" else {}))
 
 
 @functools.cache
 def _setup(dtype):
     """One tracer step's stage inputs, all as numpy in the model dtype."""
-    cfg = _cfg(dtype)
-    jm = jcore.build_model(cfg)
+    jcfg = _cfg(dtype)
+    cfg = port_config(jcfg)
+    jm = jcore.build_model(jcfg)
     arrays = {k: np.asarray(getattr(jm, k)) for k in ARRAYS}
     arrays.update(part_idx=np.asarray(jm.tables.part_idx),
                   part_mask=np.asarray(jm.tables.part_mask),

@@ -250,3 +250,75 @@ def test_std_run_diagnostics_on_card(cuda):
     assert res.log.steps == [0, 3, 6]
     assert res.log.max_relative_mass_drift() < 1e-12
     assert bool(torch.isfinite(res.q_final).all())
+
+
+def _band_shards(m, S):
+    """The banded face tables of every shard of m's raster grid."""
+    from transport_se_tpu_torch.ops.dss_face import build_face_tables
+    from transport_se_tpu_torch.parallel import face_sharded as fs
+    from transport_se_tpu_torch.parallel.halo import build_shard_plan
+    g, ne = m.grid, m.cfg.ne
+    plan = build_shard_plan(g, S)
+    ftd = build_face_tables(g.part_idx, g.part_mask, ne)
+    stack = fs.build_sharded_face_tables(g, plan, ftd)
+    roles = fs.band_roles(plan, ftd, ne)
+    out = []
+    for s in range(S):
+        sl = slice(s * plan.eloc, (s + 1) * plan.eloc)
+        t = fs.ShardedFaceTables.from_stack(stack, roles, s, plan.nhalo,
+                                            m.device, met=m.met[sl],
+                                            deriv=m.deriv)
+        hg = torch.as_tensor(plan.halo_gid[s], device=m.device)
+        out.append((sl, hg, t))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("S", [4, 8])
+def test_band_kernel_matches_plain(cuda, dtype, S):
+    """K7 == dss_band_plain bitwise in its four variants on every shard
+    (S=4: row-aligned chunks at ne=4; S=8: chunks cut rows)."""
+    from transport_se_tpu_torch.ops import band
+    m = _model(dtype, cuda, "face")
+    E, nq, nk = m.lon.shape[0], m.cfg.qsize, m.cfg.nlev
+    g = torch.Generator(device="cpu").manual_seed(S)
+    x = torch.randn(E, 16, nq * nk, generator=g, dtype=m.dtype).to(cuda)
+    dp = (1.0 + torch.rand(E, 16, nk, generator=g, dtype=m.dtype)).to(cuda)
+    rsp = m.rspheremp.reshape(E, 16)
+    for sl, hg, t in _band_shards(m, S):
+        halo = torch.where((hg >= 0)[:, None, None],
+                           x.index_select(0, hg.clamp(min=0)), 0.0)
+        ext = torch.cat([x[sl], halo])
+        for kw in ({}, dict(rsp=rsp[sl]), dict(rsp=rsp[sl], dp=dp[sl]),
+                   dict(rsp=rsp[sl], dp=dp[sl], lap=True)):
+            counters.reset()
+            got = band.dss_band(x[sl], ext, t, nq=nq, **kw)
+            assert counters.snapshot()["dss_band"] == 1
+            want = band.dss_band_plain(x[sl], ext, t, nq=nq, **kw)
+            halo_only = band.dss_band(x[sl], halo, t, nq=nq, **kw)
+            if isinstance(got, torch.Tensor):
+                got, want, halo_only = (got,), (want,), (halo_only,)
+            for a, b, c in zip(got, want, halo_only):
+                assert torch.equal(a, b) and torch.equal(c, b), kw
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_sharded_face_subcycle_on_card(cuda, dtype):
+    """The sharded face subcycle through K7 in 4 threads == in 1 thread,
+    bitwise; K4 and K6 are not launched."""
+    from transport_se_tpu_torch.parallel.comm import ThreadComm
+    from transport_se_tpu_torch.parallel.sharded import make_sharded_subcycle
+    m = _model(dtype, cuda, "face")
+    outs = []
+    for S, overlap in ((1, False), (4, False), (4, True)):
+        runner = make_sharded_subcycle(m, ThreadComm(S, timeout=300),
+                                       overlap=overlap)
+        counters.reset()
+        states = runner.step(runner.shard_qdp(initial_qdp(m)), 0)[0]
+        c = counters.snapshot()
+        assert c["dss_band"] == 4 * 3 * S and c["dss_face"] == 0
+        assert c["neighbor_minmax"] == 0 and c["dss_band_plain"] == 0
+        outs.append(runner.gather(states))
+    assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0])
+    single = make_subcycle_fn(m)(initial_qdp(m), 0)[0]
+    _close(outs[0], single)

@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from transport_se_tpu import diagnostics as jdiag
-from transport_se_tpu.config import Config
+from transport_se_tpu.config import Config as JConfig
 from transport_se_tpu.io import restart as jrestart
 from transport_se_tpu.model import core as jcore
 from transport_se_tpu.model import dcmip as jdcmip
@@ -47,11 +47,14 @@ from transport_se_tpu_torch.ops import ppm as tppm
 from transport_se_tpu_torch.ops import sphere_ops as tso
 from transport_se_tpu_torch.utils import repro_sum as trepro
 
+from test_torch_host import port_config
+
 torch.set_num_threads(1)
 
-CFG = Config(ne=2, nlev=16, qsize=2, tstep=1200.0, vcoord="dcmip16",
-             test_case="dcmip1-1", nu_q=6e16, nmax=6, statefreq=3,
-             dtype="f64")
+JCFG = JConfig(ne=2, nlev=16, qsize=2, tstep=1200.0, vcoord="dcmip16",
+               test_case="dcmip1-1", nu_q=6e16, nmax=6, statefreq=3,
+               dtype="f64")
+CFG = port_config(JCFG)
 ARRAYS = ("lon", "lat", "deriv", "D", "Dinv", "metdet", "rmetdet",
           "spheremp", "rspheremp", "etam", "etai", "hyai", "hybi",
           "dp0col", "dp0ref")
@@ -61,23 +64,23 @@ RTOL, ATOL = 1e-11, 1e-9
 E = 24
 
 
-def _pair(cfg):
-    jm = jcore.build_model(cfg)
+def _pair(jcfg):
+    jm = jcore.build_model(jcfg)
     arrays = {k: np.asarray(getattr(jm, k)) for k in ARRAYS}
     arrays.update(part_idx=np.asarray(jm.tables.part_idx),
                   part_mask=np.asarray(jm.tables.part_mask),
                   nbr=np.asarray(jm.tables.nbr))
-    return jm, model_from_numpy(cfg, arrays, "cpu", grid=jm.grid)
+    return jm, model_from_numpy(port_config(jcfg), arrays, "cpu")
 
 
 @pytest.fixture(scope="module")
 def models():
-    return _pair(CFG)
+    return _pair(JCFG)
 
 
 @pytest.fixture(scope="module")
 def face_models():
-    return _pair(dataclasses.replace(CFG, dss_mode="face",
+    return _pair(dataclasses.replace(JCFG, dss_mode="face",
                                      elem_order="raster"))
 
 
@@ -232,7 +235,7 @@ def test_startup_checks_and_state_text_match_jax(models):
         jdiag.test_global_integral(jm), abs=1e-15)
     assert tdiag.test_global_integral(tm) < 1e-13
     assert tdiag.print_cfl(tm, CFG, verbose=False) == jdiag.print_cfl(
-        jm, CFG, verbose=False)
+        jm, JCFG, verbose=False)
     Qdp = np.asarray(jcore.initial_qdp(jm))
     ps = np.full((E, 4, 4), 1.0e5)
     assert tdiag.print_state(tm, _t(Qdp), _t(ps)) == jdiag.print_state(
@@ -268,8 +271,9 @@ def test_std_subcycle_matches_jax(models, name):
     jm, tm = models
     cfg = dataclasses.replace(CFG, **VARIANTS[name])
     if cfg != CFG:
-        jm, tm = (dataclasses.replace(jm, cfg=cfg),
-                  dataclasses.replace(tm, cfg=cfg))
+        jm, tm = (dataclasses.replace(
+            jm, cfg=dataclasses.replace(JCFG, **VARIANTS[name])),
+            dataclasses.replace(tm, cfg=cfg))
         if cfg.dss_mode == "segsum":
             jm = dataclasses.replace(
                 jm, tables=dataclasses.replace(jm.tables, mode="segsum"))
@@ -348,7 +352,7 @@ def test_dispatch_follows_use_pallas(models, use_pallas, limiter,
 
 def test_run_simulation_std_matches_jax(models):
     jm, tm = models
-    want = jrun(CFG, model=jm, verbose=False)
+    want = jrun(JCFG, model=jm, verbose=False)
     counters.reset()
     got = trun(CFG, "cpu", model=tm, verbose=False)
     assert counters.COUNTS["limiter_optim_plain"] == 18

@@ -13,22 +13,26 @@ import numpy as np
 import pytest
 import torch
 
-from transport_se_tpu.config import Config
+from transport_se_tpu.config import Config as JConfig
 from transport_se_tpu.model import core as jcore
 from transport_se_tpu.model.driver import run_simulation as jrun
 from transport_se_tpu_torch import _build
+from transport_se_tpu_torch.config import Config
 from transport_se_tpu_torch.convert import (model_from_numpy,
                                             state_from_numpy)
 from transport_se_tpu_torch.model import core as tcore
 from transport_se_tpu_torch.model.driver import run_simulation as trun
 from transport_se_tpu_torch.timing import Timers
 
+from test_torch_host import port_config
+
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CFG = Config(ne=2, nlev=16, qsize=2, tstep=1200.0, vcoord="dcmip16",
-             test_case="dcmip1-1", nu_q=6e16, nmax=6, dtype="f64",
-             use_pallas=True, disable_diagnostics=True)
+JCFG = JConfig(ne=2, nlev=16, qsize=2, tstep=1200.0, vcoord="dcmip16",
+               test_case="dcmip1-1", nu_q=6e16, nmax=6, dtype="f64",
+               use_pallas=True, disable_diagnostics=True)
+CFG = port_config(JCFG)
 ARRAYS = ("lon", "lat", "deriv", "D", "Dinv", "metdet", "rmetdet",
           "spheremp", "rspheremp", "etam", "etai", "hyai", "hybi",
           "dp0col", "dp0ref")
@@ -52,7 +56,7 @@ SLICE_MODULES = (
 
 @pytest.fixture(scope="module")
 def models():
-    jm = jcore.build_model(CFG)
+    jm = jcore.build_model(JCFG)
     arrays = {k: np.asarray(getattr(jm, k)) for k in ARRAYS}
     arrays.update(part_idx=np.asarray(jm.tables.part_idx),
                   part_mask=np.asarray(jm.tables.part_mask),
@@ -98,7 +102,7 @@ def test_subcycle_conserves_mass(models, one_subcycle):
 
 def test_run_simulation_matches_jax(models):
     jm, tm = models
-    want = jrun(CFG, model=jm, verbose=False)
+    want = jrun(JCFG, model=jm, verbose=False)
     got = trun(CFG, "cpu", model=tm)
     assert got.nsteps == want.nsteps == 6
     assert len(got.min_dp) == 2 and min(got.min_dp) > 0
@@ -164,9 +168,9 @@ def test_t_subcycle_general_search_matches_jax(models):
     """ppm_search="general" on the T layout: the unbounded search in
     element chunks, as the JAX package's lax.map."""
     jm, tm = models
-    cfg = Config(**{**CFG.__dict__, "ppm_search": "general"})
-    jm, tm = (dataclasses.replace(jm, cfg=cfg),
-              dataclasses.replace(tm, cfg=cfg))
+    jcfg = dataclasses.replace(JCFG, ppm_search="general")
+    jm, tm = (dataclasses.replace(jm, cfg=jcfg),
+              dataclasses.replace(tm, cfg=port_config(jcfg)))
     E, qk = 24, CFG.qsize * CFG.nlev
     Qt0 = np.asarray(jcore._tp(jcore.initial_qdp(jm), E, qk))
     want = jax.jit(jcore.make_subcycle_fn(jm, io_layout="t"))(

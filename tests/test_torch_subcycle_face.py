@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from transport_se_tpu.config import Config
+from transport_se_tpu.config import Config as JConfig
 from transport_se_tpu.model import core as jcore
 from transport_se_tpu.model.driver import run_simulation as jrun
 from transport_se_tpu_torch import counters
@@ -18,13 +18,16 @@ from transport_se_tpu_torch.convert import (model_from_numpy,
 from transport_se_tpu_torch.model import core as tcore
 from transport_se_tpu_torch.model.driver import run_simulation as trun
 
+from test_torch_host import port_config
+
 torch.set_num_threads(1)
 
 # the JAX suite's face-mode Pallas subcycle (test_sharded_face.py) at ne=2
-CFG = Config(ne=2, nlev=16, qsize=2, tstep=1200.0, vcoord="dcmip16",
-             test_case="dcmip1-1", nu_q=6e16, nmax=6, dtype="f64",
-             use_pallas=True, disable_diagnostics=True, dss_mode="face",
-             elem_order="raster")
+JCFG = JConfig(ne=2, nlev=16, qsize=2, tstep=1200.0, vcoord="dcmip16",
+               test_case="dcmip1-1", nu_q=6e16, nmax=6, dtype="f64",
+               use_pallas=True, disable_diagnostics=True, dss_mode="face",
+               elem_order="raster")
+CFG = port_config(JCFG)
 ARRAYS = ("lon", "lat", "deriv", "D", "Dinv", "metdet", "rmetdet",
           "spheremp", "rspheremp", "etam", "etai", "hyai", "hybi",
           "dp0col", "dp0ref")
@@ -35,7 +38,7 @@ WIND_TERMS = 6
 
 @pytest.fixture(scope="module")
 def models():
-    jm = jcore.build_model(CFG)
+    jm = jcore.build_model(JCFG)
     arrays = {k: np.asarray(getattr(jm, k)) for k in ARRAYS}
     arrays.update(part_idx=np.asarray(jm.tables.part_idx),
                   part_mask=np.asarray(jm.tables.part_mask),
@@ -108,7 +111,7 @@ def test_face_plain_switch_equals_wrappers(models, one_subcycle):
 
 def test_face_run_simulation_matches_jax(models):
     jm, tm = models
-    want = jrun(CFG, model=jm, verbose=False)
+    want = jrun(JCFG, model=jm, verbose=False)
     got = trun(CFG, "cpu", model=tm)
     assert got.nsteps == want.nsteps == 6
     assert len(got.min_dp) == 2 and min(got.min_dp) > 0

@@ -25,7 +25,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("euler.cu", "ppm.cu", "dss.cu", "limiter.cu")
+SOURCES = ("euler.cu", "ppm.cu", "dss.cu", "limiter.cu", "band.cu")
 # included by the sources; part of the library's hash
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -58,6 +58,8 @@ ENTRIES = {
     "tse_minmax_prep": [P] * 4 + [I, I, I, P],
     # qmin qmax nbr | gmin gmax | E L | stream
     "tse_neighbor_minmax": [P] * 5 + [I, I, P],
+    # x halo role rsp dp met deriv | out qmin qmax lap | E L nk flags | stream
+    "tse_dss_band": [P] * 11 + [I, I, I, I, P],
     # ptens sph dpmass minp maxp | out minp_o maxp_o | n sph_rep sph_inner
     # dp_rep dp_inner | tol | stream
     "tse_limiter_optim": [P] * 8 + [LL] * 5 + [D, P],

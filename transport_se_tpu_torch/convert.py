@@ -13,10 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from transport_se_tpu.config import Config
-from transport_se_tpu.grid.cubesphere import build_grid
-
-from .model.core import Model, hvcoord
+from .config import Config
+from .grid.cubesphere import build_grid
+from .model.core import Model, check_config, hvcoord
 from .ops.dss import DssTables
 from .ops.euler import metric_pack
 
@@ -34,6 +33,7 @@ def model_from_numpy(cfg: Config, arrays: dict, device, grid=None) -> Model:
     Config requires (ValueError otherwise).  grid is the host-side Grid
     the arrays came from (the history writer and the CFL check read it);
     None builds cfg's."""
+    check_config(cfg)
     missing = [k for k in MODEL_ARRAYS + TABLE_ARRAYS if k not in arrays]
     if missing:
         raise KeyError(f"model arrays missing: {missing}")

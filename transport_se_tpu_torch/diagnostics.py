@@ -19,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from transport_se_tpu.constants import (CP, DD_PI, G, KAPPA, RREARTH,
+from .constants import (CP, DD_PI, G, KAPPA, RREARTH,
                                         SCALE_HEIGHT, T0)
 
 from .model import dcmip

@@ -2,9 +2,9 @@
 
 Port of `transport_se_tpu/main.py` (reference: src/prim_main.F90:5, the
 main loop :142-175 with the movie and restart writes :163-174 and the
-timer dump :188).  The namelist is the reference's (read by the JAX
-package's numpy-only `io/namelist.py`, as is), and so are the history
-file (`io/history.py`) and the restart file format.
+timer dump :188).  The namelist is the reference's (read by the port's copy
+of the JAX package's `io/namelist.py`), and so are the history file
+(`io/history.py`) and the restart file format.
 
 Usage:
     python -m transport_se_tpu_torch.main namelist.nl [--device cuda|cpu]
@@ -45,12 +45,11 @@ def main(argv=None):
     device = torch.device("cuda", 0) if args.device == "cuda" else \
         torch.device("cpu")
 
-    from transport_se_tpu.io.history import HistoryWriter
-    from transport_se_tpu.io.namelist import config_from_namelist
-
     from . import counters
     from .diagnostics import print_cfl, test_global_integral
     from .io import restart as restart_io
+    from .io.history import HistoryWriter
+    from .io.namelist import config_from_namelist
     from .model.core import build_model
     from .model.driver import run_simulation
     from .timing import timers

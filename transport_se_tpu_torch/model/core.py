@@ -28,6 +28,11 @@ Two pipelines, chosen as the JAX package chooses them
   K6; in gather or segsum mode the DSS, bound prep and neighbor min/max
   are plain PyTorch and stage 2 runs the weak-Laplacian kernel K2.
 
+Both run per shard unchanged (parallel/sharded.py): a shard's Model holds
+its slice of the element arrays (`shard_model`) and a ShardedDssTables,
+and on the face path with overlap the stage runs once more on the
+boundary group to give the halo payload (`euler_step_t`).
+
 rhs_bf16 (a TPU matmul-precision knob) is not ported and raises.
 """
 
@@ -39,11 +44,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from transport_se_tpu.config import Config
-from transport_se_tpu.constants import P0
-from transport_se_tpu.grid.cubesphere import build_grid
-from transport_se_tpu.grid.vcoord import (HVCoord, hvcoord_acme72,
-                                          hvcoord_dcmip, hvcoord_from_files)
+from ..config import Config
+from ..constants import P0
+from ..grid.cubesphere import build_grid
+from ..grid.vcoord import (HVCoord, hvcoord_acme72, hvcoord_dcmip,
+                           hvcoord_from_files)
 
 from ..ops import sphere_ops as so
 from ..ops.dss import DssTables, dss_scale
@@ -105,9 +110,10 @@ def hvcoord(cfg: Config) -> HVCoord:
 
 
 def build_model(cfg: Config, device) -> Model:
-    """The model of cfg on `device`, from the JAX package's host-side grid
-    and vertical-coordinate functions (bit-identical tables)."""
+    """The model of cfg on `device`, from the port's host-side grid and
+    vertical-coordinate modules (bit-identical to the JAX package's)."""
     from ..convert import model_from_numpy
+    check_config(cfg)
     grid = build_grid(cfg.ne, order=cfg.elem_order)
     hv = hvcoord(cfg)
     arrays = dict(
@@ -332,15 +338,33 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
                 pre_lap = laplace(Q_t, m.met, m.deriv)
             bih = tb.dss_scale_t(pre_lap, rsp16, plain=plain)
 
-    out_t, qmin, qmax = advect(
-        Qt, uv_t, dp_t, divdp_t, qmin, qmax, m.met, m.deriv, float(dt),
-        bih=bih, nu_coef=nu_coef, dp0=m.dp0ref,
-        max_iter=cfg.limiter_iter_cap or MAX_ITER)
+    kw = dict(bih=bih, nu_coef=nu_coef, dp0=m.dp0ref,
+              max_iter=cfg.limiter_iter_cap or MAX_ITER)
+    out_t, qmin_o, qmax_o = advect(Qt, uv_t, dp_t, divdp_t, qmin, qmax,
+                                   m.met, m.deriv, float(dt), **kw)
+    dss_kw = {}
+    if tb.overlap_face:
+        # face+overlap composition (JAX core.py:358-380): the stage once
+        # more on the boundary group alone (the elements some peer needs)
+        # gives the halo payload xb.  K1's per-column results do not
+        # depend on which elements share its launch, so xb is bitwise
+        # out_t[bidx] and the assembly is unchanged; the payload depends
+        # only on the small launch.
+        b = tb.bidx
+
+        def sel(a):
+            return None if a is None else a.index_select(0, b)
+        dss_kw["xb"] = advect(
+            sel(Qt), (sel(uv_t[0]), sel(uv_t[1])), sel(dp_t), sel(divdp_t),
+            sel(qmin), sel(qmax), sel(m.met), m.deriv, float(dt),
+            **dict(kw, bih=sel(bih)))[0]
+    qmin, qmax = qmin_o, qmax_o
     if next_dp is not None:
         Qt_new, nmn, nmx, lap = tb.dss_scale_minmax_t(
-            out_t, rsp16, next_dp, nq, avg=avg_t, lap=next_lap, plain=plain)
+            out_t, rsp16, next_dp, nq, avg=avg_t, lap=next_lap, plain=plain,
+            **dss_kw)
         return Qt_new, qmin, qmax, ((nmn, nmx), lap)
-    Qt_new = tb.dss_scale_t(out_t, rsp16, avg=avg_t, plain=plain)
+    Qt_new = tb.dss_scale_t(out_t, rsp16, avg=avg_t, plain=plain, **dss_kw)
     return Qt_new, qmin, qmax, None
 
 
@@ -412,8 +436,30 @@ def vertical_remap_t(m: Model, Qt, divdp_proj_t, dt_remap, plain=False):
 # the remap-interval step (prim_run_subcycle)
 # ---------------------------------------------------------------------------
 
+# the Model's element-indexed arrays, which a shard holds its slice of
+ELEM_FIELDS = ("lon", "lat", "D", "Dinv", "metdet", "rmetdet", "spheremp",
+               "rspheremp", "met")
+
+
+def shard_model(m: Model, elems: torch.Tensor, tables) -> Model:
+    """The model of one shard: the element-indexed arrays at `elems`
+    (int64 element ids on the model's device, in the shard's order) and
+    the shard's DSS tables (parallel/halo.py ShardedDssTables)."""
+    return dataclasses.replace(
+        m, tables=tables,
+        **{k: getattr(m, k).index_select(0, elems) for k in ELEM_FIELDS})
+
+
+def check_config(cfg) -> None:
+    """Raise TypeError unless cfg is the port's own Config."""
+    if not isinstance(cfg, Config):
+        raise TypeError(f"expected transport_se_tpu_torch.config.Config, got "
+                        f"{type(cfg).__module__}.{type(cfg).__qualname__}")
+
+
 def check_ported(cfg: Config) -> None:
     """Raise NotImplementedError for what the port does not run."""
+    check_config(cfg)
     if cfg.rhs_bf16:
         raise NotImplementedError("rhs_bf16 (bf16 advection matmuls, a TPU "
                                   "perf knob) is not ported")

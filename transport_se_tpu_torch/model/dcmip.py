@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from transport_se_tpu.constants import (DD_PI as PI, G, P0, REARTH, RGAS,
+from ..constants import (DD_PI as PI, G, P0, REARTH, RGAS,
                                         SCALE_HEIGHT, T0)
 
 SECPDAY = 86400.0

@@ -24,8 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from transport_se_tpu.config import Config
-from transport_se_tpu.constants import P0
+from ..config import Config
+from ..constants import P0
 
 from ..diagnostics import StateLog, flow_fields, to_numpy, tracer_diagnostics
 from ..timing import timers
@@ -58,7 +58,7 @@ def run_simulation(cfg: Config, device, model: Optional[Model] = None,
                    restartfreq: int = 0, restart_writer=None) -> RunResult:
     """Run cfg.nsteps tracer steps on `device`.
 
-    history: a `transport_se_tpu.io.history.HistoryWriter`, which receives
+    history: an `io.history.HistoryWriter`, which receives
     (model, nstep, Q, ps_v) as numpy at each output interval and at the
     end.  init_state = (Qdp [E,q,k,n,n], nstep0) resumes from a restart; the
     run continues to cfg.nsteps in all.  restart_writer(model, nstep, Qdp,

@@ -17,7 +17,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from transport_se_tpu.constants import DD_PI as PI, P0, REARTH, SCALE_HEIGHT
+from ..constants import DD_PI as PI, P0, REARTH, SCALE_HEIGHT
 
 from ..ops import sphere_ops as so
 from . import dcmip

@@ -72,6 +72,8 @@ class DssTables:
     deriv: Optional[torch.Tensor] = None
     seg_idx: Optional[torch.Tensor] = None
     seg_mask: Optional[torch.Tensor] = None
+    # no halo payload to duplicate on one device (see ShardedDssTables)
+    overlap_face = False
 
     def __post_init__(self):
         if self.mode not in MODES:

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..counters import COUNTS
+from ..counters import bump
 from .euler import (_DTYPES, N2, _check, _device_kind, _lap_wk, _met_rows,
                     _stream)
 
@@ -272,7 +272,7 @@ def _q_minmax(x, dp, nq):
 def dss_face_plain(x, ft: FaceTables, rsp=None, avg=None, dp=None,
                    met=None, deriv=None):
     """Plain PyTorch version of the face DSS; see dss_face."""
-    COUNTS["dss_face_plain"] += 1
+    bump("dss_face_plain")
     E, nn, L = x.shape
     xf = x.reshape(E * nn, L)
 
@@ -304,7 +304,7 @@ def dss_face_plain(x, ft: FaceTables, rsp=None, avg=None, dp=None,
 
 def minmax_prep_plain(x, dp, nq):
     """Plain PyTorch version of the bound prep; see minmax_prep."""
-    COUNTS["minmax_prep_plain"] += 1
+    bump("minmax_prep_plain")
     return _q_minmax(x, dp, nq)
 
 
@@ -350,7 +350,7 @@ def _nbr_reduce(q, ft: FaceTables, op, pad):
 def neighbor_minmax_plain(qmin, qmax, ft: FaceTables):
     """Plain PyTorch version of the neighbor min/max; see
     neighbor_minmax."""
-    COUNTS["neighbor_minmax_plain"] += 1
+    bump("neighbor_minmax_plain")
     return (_nbr_reduce(qmin, ft, torch.minimum, float("inf")),
             _nbr_reduce(qmax, ft, torch.maximum, float("-inf")))
 
@@ -418,7 +418,7 @@ def dss_face(x, ft: FaceTables, rsp=None, avg=None, dp=None, met=None,
               _ptr(dp), _ptr(met), _ptr(deriv), out.data_ptr(), _ptr(qmin),
               _ptr(qmax), _ptr(lap), E, L, nk, flags, _stream(dev))
     _build.check(code, "dss_face")
-    COUNTS["dss_face"] += 1
+    bump("dss_face")
     if dp is None:
         return out
     return (out, qmin, qmax) + ((lap,) if met is not None else ())
@@ -444,7 +444,7 @@ def minmax_prep(x, dp, nq):
     code = fn(x.data_ptr(), dp.data_ptr(), qmin.data_ptr(), qmax.data_ptr(),
               E, L, nk, _stream(dev))
     _build.check(code, "minmax_prep")
-    COUNTS["minmax_prep"] += 1
+    bump("minmax_prep")
     return qmin, qmax
 
 
@@ -465,5 +465,5 @@ def neighbor_minmax(qmin, qmax, ft: FaceTables):
     code = fn(qmin.data_ptr(), qmax.data_ptr(), ft.nbr.data_ptr(),
               gmin.data_ptr(), gmax.data_ptr(), E, L, _stream(dev))
     _build.check(code, "neighbor_minmax")
-    COUNTS["neighbor_minmax"] += 1
+    bump("neighbor_minmax")
     return gmin, gmax

@@ -25,10 +25,10 @@ from __future__ import annotations
 
 import torch
 
-from transport_se_tpu.constants import RREARTH
+from ..constants import RREARTH
 
 from .. import _build
-from ..counters import COUNTS
+from ..counters import bump
 
 # relative limiter convergence tolerance |addmass| <= tol*|mass|: the
 # reference's f64-grade criterion (prim_advection_mod.F90:1009)
@@ -168,7 +168,7 @@ def fused_advect_limit_plain(Qt, uv, dp, divdp, qmin, qmax, met, deriv,
                              dt, bih=None, nu_coef=0.0, dp0=None,
                              max_iter=MAX_ITER):
     """Plain PyTorch version of the fused stage; see fused_advect_limit."""
-    COUNTS["fused_advect_limit_plain"] += 1
+    bump("fused_advect_limit_plain")
     u, v = uv
     L = Qt.shape[-1]
     d00, d01, d10, d11, metdet, rmetdet, sp = _met_rows(
@@ -203,7 +203,7 @@ def fused_advect_limit_plain(Qt, uv, dp, divdp, qmin, qmax, met, deriv,
 
 def laplace_wk_t_plain(s_t, met, deriv):
     """Plain PyTorch version of the weak Laplacian; see laplace_wk_t."""
-    COUNTS["laplace_wk_t_plain"] += 1
+    bump("laplace_wk_t_plain")
     s00, s01, s11 = _met_rows(met, "s00", "s01", "s11")
     return _lap_wk(s_t, s00, s01, s11, deriv)
 
@@ -290,7 +290,7 @@ def fused_advect_limit(Qt, uv, dp, divdp, qmin, qmax, met, deriv, dt,
               E, L, nk, float(dt), float(nu_coef), 2 if has_bih else 0,
               int(max_iter), TOL_LIMITER, _stream(dev))
     _build.check(code, "fused_advect_limit")
-    COUNTS["fused_advect_limit"] += 1
+    bump("fused_advect_limit")
     return out, qmin_o, qmax_o
 
 
@@ -310,5 +310,5 @@ def laplace_wk_t(s_t, met, deriv):
     code = fn(s_t.data_ptr(), met.data_ptr(), deriv.data_ptr(),
               out.data_ptr(), E, B, _stream(dev))
     _build.check(code, "laplace_wk_t")
-    COUNTS["laplace_wk_t"] += 1
+    bump("laplace_wk_t")
     return out

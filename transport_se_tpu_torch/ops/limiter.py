@@ -41,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..counters import COUNTS
+from ..counters import bump
 from .euler import (TOL_LIMITER, _DTYPES, _check, _device_kind, _stream,
                     limiter_iterate_plain)
 
@@ -51,7 +51,7 @@ N2 = 16
 def limiter_optim_iter_full_plain(ptens, sphweights, minp, maxp, dpmass):
     """Plain PyTorch version of limiter 8; see limiter_optim_iter_full.
     sphweights and dpmass may be any shapes that broadcast to ptens'."""
-    COUNTS["limiter_optim_plain"] += 1
+    bump("limiter_optim_plain")
     x, minp, maxp, valid = limiter_iterate_plain(
         ptens / dpmass, sphweights * dpmass, minp, maxp)
     out = torch.where(valid[..., None], x * dpmass, ptens)
@@ -79,7 +79,7 @@ def _launch(ptens, sphweights, dpmass, minp, maxp, sph_rep, sph_inner,
               minp_o.data_ptr(), maxp_o.data_ptr(), n, sph_rep, sph_inner,
               dp_rep, dp_inner, TOL_LIMITER, _stream(ptens.device))
     _build.check(code, "limiter_optim")
-    COUNTS["limiter_optim"] += 1
+    bump("limiter_optim")
     return out, minp_o, maxp_o
 
 

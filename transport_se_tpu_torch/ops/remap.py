@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..counters import COUNTS
+from ..counters import bump
 from .euler import _DTYPES, _check, _device_kind, _stream
 from .ppm import _shift_left_clamp as _shl
 from .ppm import _shift_right_clamp as _shr
@@ -96,7 +96,7 @@ def _level_terms(d, dp2):
 
 def remap_q_ppm_t_plain(Qt, dp_star, dp_ref, alg=0):
     """Plain PyTorch version of the T-layout remap; see remap_q_ppm_t."""
-    COUNTS["remap_q_ppm_t_plain"] += 1
+    bump("remap_q_ppm_t_plain")
     E, _, qk = Qt.shape
     nk = dp_star.shape[-1]
     nq = qk // nk
@@ -176,5 +176,5 @@ def remap_q_ppm_t(Qt, dp_star, dp_ref, alg=0):
     code = fn(Qt.data_ptr(), dp_star.data_ptr(), dp_ref.data_ptr(),
               out.data_ptr(), E, qk // nk, nk, int(alg), _stream(dev))
     _build.check(code, "remap_q_ppm_t")
-    COUNTS["remap_q_ppm_t"] += 1
+    bump("remap_q_ppm_t")
     return out

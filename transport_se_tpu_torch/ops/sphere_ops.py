@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from transport_se_tpu.constants import RREARTH
+from ..constants import RREARTH
 
 
 def _ddx(s, deriv):
