@@ -9,7 +9,9 @@ the result lines):
   2. build the CUDA kernels from csrc/ (one nvcc call, sm_90a)
   3. each T-path kernel against its plain PyTorch version at NE30 shapes
      (E=5400, 35 tracers x 72 levels), f32 and f64, with times: K1-K3 and
-     the face trio K4 (in the five variants the face path takes), K5, K6
+     the face trio K4 (in the five variants the face path takes), K5, K6;
+     K1 bitwise at each stage kind, and its times at limiter iteration
+     caps 1, 2, 4 and 15
   4. the T-layout perf path, run_simulation(perf_config(30, f32,
      use_pallas=True)) in the production face DSS mode for 6 steps, then
      the same in gather mode (the path that runs K2): launch counts,
@@ -18,7 +20,8 @@ the result lines):
   6. one NE8 f64 T-layout subcycle in gather and one in face mode, kernels
      against plain versions
   7. five steady-state NE30 f32 T-layout subcycles timed with CUDA events,
-     face mode, then gather mode for comparison
+     face mode, then gather mode for comparison; one more face subcycle
+     under torch.profiler: device ms by kernel name and the idle share
   8. the row limiter K10 against its plain version at NE30 std shapes
      (1,555,200 rows of the DCMIP 1-1 stage 0 with its neighbor bounds),
      f32 and f64, with times
@@ -64,6 +67,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 NE = 30
 N_TIMED = 5          # timed repetitions (median) per kernel and for phase 7
+SWEEP_ITERS = (1, 2, 4, 15)   # K1's limiter iteration caps timed in phase 3
+N_NAMES = 10         # kernel names printed by phase 7's profile
 # kernel vs plain, max |kernel - plain| / max |plain|.  Both sides do the
 # same operations in the same order (csrc/*.cu is built with --fmad=false),
 # so the expected difference is 0.  f32: 1e-5 leaves room for a one-ulp
@@ -454,6 +459,7 @@ def main():
         # K1, the three stage kinds: dp of stage s = dp0 - s*dt2*divdp_proj;
         # stage 2 adds the hyperviscosity of the DSS'd first Laplacian
         out0 = None
+        sweep = {}
         for s in (0, 1, 2):
             dp = (m.dp0col[None, None, :] - s * dt2 * divp).contiguous()
             bih, nu = None, 0.0
@@ -475,6 +481,16 @@ def main():
                        + (OPS["lap"] if s == 2 else 0)))
             if s == 0:
                 out0 = euler.fused_advect_limit(*args, **kw)[0]
+            # the limiter's share: K1's time at each iteration cap
+            sweep[s] = [timed(torch, lambda: euler.fused_advect_limit(
+                *args, **dict(kw, max_iter=it))) for it in SWEEP_ITERS]
+        check(all(a == 0.0 for n, e in errs.items() if n.startswith("K1")
+                  for a, _ in e), f"{dtype} K1 is not bitwise equal to its "
+              f"plain version: {[errs[f'K1 stage{s}'] for s in range(3)]}")
+        line.append("K1 ms at max_iter " + "/".join(map(str, SWEEP_ITERS))
+                    + ": " + ", ".join(
+                        f"stage{s} " + "/".join(f"{t:.3f}" for t in ts)
+                        for s, ts in sweep.items()))
         Q_t = (Qt.reshape(E, 16, nq, nk)
                / m.dp0col[None, None, None, :]).reshape(Qt.shape)
         hold("K2", lambda: euler.laplace_wk_t(Q_t, m.met, m.deriv),
@@ -687,6 +703,35 @@ def main():
         check(bool(torch.isfinite(Qt).all()), "phase 7: non-finite state")
         return [a_ev.elapsed_time(b_ev) for a_ev, b_ev in per], wall
 
+    def profile(model):
+        """Device ms by kernel name and the idle share of one steady-state
+        subcycle under torch.profiler (after a warm-up subcycle)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity
+        step = make_subcycle_fn(model, io_layout="t")
+        Qt, _, nstep, _ = step(_tp(initial_qdp(model), E, nq * nk), 0)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as pr:
+            step(Qt, nstep)
+            torch.cuda.synchronize()
+        spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                       for ev in pr.events()
+                       if ev.device_type == DeviceType.CUDA)
+        check(bool(spans), "phase 7: the profiler saw no device activity")
+        by_name, busy, end = {}, 0.0, spans[0][0]
+        for a, b, name in spans:
+            # a kernel's name without its namespace, arguments and template
+            # arguments, e.g. euler_kernel or vectorized_elementwise_kernel
+            short = re.split(r"[<(]", name.replace(
+                "(anonymous namespace)::", "").removeprefix("void "))[0]
+            short = short.split("::")[-1].strip()
+            by_name[short] = by_name.get(short, 0.0) + (b - a) / 1e3
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        span_ms = (end - spans[0][0]) / 1e3
+        return by_name, busy / 1e3, span_ms
+
     for mode, model in (("face", m), ("gather", m_g)):
         sub_ms, wall = steady(model)
         rate = N_TIMED * cfg.rsplit * E * 16 * nk * nq / wall
@@ -696,6 +741,15 @@ def main():
             f"{max(sub_ms):.2f}; host wall {wall / N_TIMED * 1e3:.2f} "
             f"ms/subcycle; {rate:.4e} gridpoint-tracers/s "
             f"(steps*E*16*nlev*qsize/wall, information only) on {card}")
+        if mode == "face":
+            by_name, busy, span = profile(model)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])
+            rest = sum(t for _, t in top[N_NAMES:])
+            say(f"phase 7 NE{NE} f32 face subcycle under torch.profiler: "
+                f"device span {span:.2f} ms, busy {busy:.2f} ms, idle "
+                f"{1 - busy / span:.1%}; device ms by kernel: "
+                + ", ".join(f"{k} {t:.2f}" for k, t in top[:N_NAMES])
+                + f", {max(0, len(top) - N_NAMES)} others {rest:.2f}")
 
     del m, m_g
     torch.cuda.empty_cache()

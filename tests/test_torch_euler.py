@@ -40,16 +40,17 @@ DT = 600.0
 NU_Q = 6e16
 
 
-def _cfg(dtype):
-    return JConfig(ne=2, nlev=8, qsize=3, tstep=1200.0, vcoord="dcmip8",
-                   test_case="dcmip1-1", dtype=dtype, nu_q=NU_Q,
+def _cfg(dtype, nlev=8, qsize=3):
+    return JConfig(ne=2, nlev=nlev, qsize=qsize, tstep=1200.0,
+                   vcoord=f"dcmip{nlev}", test_case="dcmip1-1", dtype=dtype,
+                   nu_q=NU_Q,
                    **({"limiter_iter_cap": 4} if dtype == "f32" else {}))
 
 
 @functools.cache
-def _setup(dtype):
+def _setup(dtype, nlev=8, qsize=3):
     """One tracer step's stage inputs, all as numpy in the model dtype."""
-    jcfg = _cfg(dtype)
+    jcfg = _cfg(dtype, nlev, qsize)
     cfg = port_config(jcfg)
     jm = jcore.build_model(jcfg)
     arrays = {k: np.asarray(getattr(jm, k)) for k in ARRAYS}
@@ -102,10 +103,11 @@ def _stage(cfg, jm, tm, ins, s):
     return dp, bih, nu
 
 
-def _jax_stage(dtype, s):
+def _jax_stage(dtype, s, shape=()):
     """The JAX fused_advect_limit's outputs of stage s, as numpy, through
-    the kernel form pallas_euler.KERNEL_VERSION selects."""
-    cfg, jm, tm, ins = _setup(dtype)
+    the kernel form pallas_euler.KERNEL_VERSION selects; shape: (nlev,
+    qsize) other than _setup's default."""
+    cfg, jm, tm, ins = _setup(dtype, *shape)
     dp, bih, nu = _stage(cfg, jm, tm, ins, s)
     j = fused_advect_limit(
         jnp.asarray(ins["Qt"]), (jnp.asarray(ins["u"]), jnp.asarray(ins["v"])),
@@ -120,12 +122,12 @@ def _jax_stage(dtype, s):
 
 
 @functools.cache
-def _run_both(dtype, s):
+def _run_both(dtype, s, shape=()):
     """(JAX outputs, port outputs) of stage s, as numpy."""
-    cfg, jm, tm, ins = _setup(dtype)
+    cfg, jm, tm, ins = _setup(dtype, *shape)
     dp, bih, nu = _stage(cfg, jm, tm, ins, s)
     max_iter = cfg.limiter_iter_cap or 15
-    j = _jax_stage(dtype, s)
+    j = _jax_stage(dtype, s, shape)
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
     got = euler.fused_advect_limit(
         t(ins["Qt"]), (t(ins["u"]), t(ins["v"])), t(dp), t(ins["divdp"]),
@@ -135,11 +137,12 @@ def _run_both(dtype, s):
     return j, [g.numpy() for g in got]
 
 
-@pytest.mark.parametrize("stage", [0, 1, 2])
-def test_fused_advect_limit_matches_jax(setup, stage):
-    cfg, jm, tm, ins = setup
-    (jout, jmin, jmax), (out, mn, mx) = _run_both(cfg.dtype, stage)
-    if cfg.dtype == "f64":
+def _assert_stage_close(dtype, jax_out, port_out, joint_scale=False):
+    """The bounds of test_fused_advect_limit_matches_jax.  joint_scale:
+    both limiter bounds take the larger of their scales, for a tracer whose
+    qmin is 0 wherever roundoff does not relax it."""
+    (jout, jmin, jmax), (out, mn, mx) = jax_out, port_out
+    if dtype == "f64":
         # the JAX package's own f64 parity bound (test_pallas_limiter.py:90)
         np.testing.assert_allclose(out, jout, rtol=1e-11, atol=1e-9)
     else:
@@ -153,9 +156,36 @@ def test_fused_advect_limit_matches_jax(setup, stage):
     # scale (a bound at the edge of relaxation may relax on one side only,
     # which moves it by those same few ulp)
     eps = np.finfo(out.dtype).eps
+    joint = max(np.abs(jmin).max(), np.abs(jmax).max())
     for got, want in ((mn, jmin), (mx, jmax)):
+        scale = joint if joint_scale else np.abs(want).max()
         np.testing.assert_allclose(got, want, rtol=4 * eps,
-                                   atol=4 * eps * np.abs(want).max())
+                                   atol=4 * eps * scale)
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2])
+def test_fused_advect_limit_matches_jax(setup, stage):
+    cfg = setup[0]
+    _assert_stage_close(cfg.dtype, *_run_both(cfg.dtype, stage))
+
+
+# (nlev, qsize): one tracer (fewer lanes than a warp), and an odd level
+# count (a warp's lanes wrap from the last level to the first: the CUDA
+# kernel reads level fields at lane % nlev)
+SHAPES = {"q1": (8, 1), "nlev5": (5, 3), "q1_nlev5": (5, 1)}
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2])
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_fused_advect_limit_matches_jax_shapes(dtype, shape, stage):
+    """The bounds of test_fused_advect_limit_matches_jax at one tracer and
+    at an odd level count.  The one tracer is DCMIP 1-1's first, whose
+    lower bounds are 0 but where a column's mass, 0 up to roundoff, relaxes
+    them (measured 4e-22 in f64, 3e-13 in f32, against an upper bound of
+    0.99): their 4 ulp are of the upper bound's scale."""
+    _assert_stage_close(dtype, *_run_both(dtype, stage, SHAPES[shape]),
+                        joint_scale=True)
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2])

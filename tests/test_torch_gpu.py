@@ -86,6 +86,73 @@ def test_kernels_match_plain(cuda, dtype):
                remap.remap_q_ppm_t_plain(Qt, dps, dpr, alg=alg))
 
 
+# K1's edge cases, each (nlev, qsize, options): one element (E = 1), alone
+# and with more lanes than a block has threads (lane groups); fewer lanes
+# than threads; level counts that do not divide 32 (a warp wraps from the
+# last level to the first); a level whose weights sum to <= 0 (element 0
+# with negative spheremp); the limiter's cap at 1 and 15; and a launch on
+# a subset of the elements (the face+overlap path's boundary group), whose
+# rows must equal the whole launch's
+K1_CASES = {
+    "e1": (16, 3, dict(sel=[5])),
+    "e1_lane_groups": (8, 35, dict(sel=[5])),
+    "one_tracer": (16, 1, {}),
+    "nlev7": (7, 3, {}),
+    "nlev72": (72, 2, {}),
+    "sumc_le0": (16, 3, dict(neg=True)),
+    "max_iter1": (16, 3, dict(max_iter=1)),
+    "max_iter15": (16, 3, dict(max_iter=15)),
+    "subset": (16, 3, dict(sel=[3, 7, 11, 20, 22])),
+}
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k1_edge_shapes_bitwise(cuda, dtype, case):
+    """K1 == fused_advect_limit_plain bitwise at each stage kind."""
+    nlev, qsize, opt = K1_CASES[case]
+    cfg = Config(ne=2, nlev=nlev, qsize=qsize, tstep=1200.0,
+                 vcoord="acme72" if nlev == 72 else f"dcmip{nlev}",
+                 test_case="dcmip1-1", nu_q=6e16, dtype=dtype,
+                 disable_diagnostics=True, use_pallas=True)
+    m = build_model(cfg, cuda)
+    E, nq, nk = m.lon.shape[0], qsize, nlev
+    Qt = _tp(initial_qdp(m), E, nq * nk)
+    _, _, u, v, divdp, divp = build_wind_basis(m).eval(
+        torch.full((), 1200.0, dtype=m.dtype, device=cuda))
+    dp0 = m.dp0col[None, None, :].expand(E, 16, nk)
+    mn, mx = m.tables.neighbor_minmax(*m.tables.minmax_prep(Qt, dp0, nq))
+    Q = (Qt.reshape(E, 16, nq, nk) / dp0[:, :, None, :]).reshape(Qt.shape)
+    bih = m.tables.dss_scale_t(euler.laplace_wk_t(Q, m.met, m.deriv),
+                               m.rspheremp.reshape(E, 16))
+    met = m.met.clone()
+    if opt.get("neg"):
+        met[0, euler.MET_ROWS.index("spheremp")] *= -1
+    max_iter = opt.get("max_iter", 4 if dtype == "f32" else 15)
+    idx = torch.as_tensor(opt.get("sel", range(E)), device=cuda)
+    pick = lambda t: t.index_select(0, idx).contiguous()  # noqa: E731
+    for s in (0, 1, 2):
+        dp = (m.dp0col[None, None, :] - s * 600.0 * divp).contiguous()
+        full = (Qt, (u, v), dp, divdp, mn, mx, met, m.deriv, 600.0)
+        part = (pick(Qt), (pick(u), pick(v)), pick(dp), pick(divdp),
+                pick(mn), pick(mx), pick(met), m.deriv, 600.0)
+        kw = dict(bih=bih if s == 2 else None, nu_coef=-1.08e20,
+                  dp0=m.dp0ref, max_iter=max_iter)
+        counters.reset()
+        whole = euler.fused_advect_limit(*full, **kw)
+        got = euler.fused_advect_limit(
+            *part, **dict(kw, bih=None if s < 2 else pick(bih)))
+        assert counters.snapshot()["fused_advect_limit"] == 2
+        want = euler.fused_advect_limit_plain(
+            *part, **dict(kw, bih=None if s < 2 else pick(bih)))
+        for g, w, a in zip(got, want, whole):
+            assert torch.equal(g, w), (case, s, (g - w).abs().max().item())
+            assert torch.equal(g, pick(a)), (case, s)
+        if opt.get("neg"):
+            # dp_star > 0, so element 0's weights spheremp*dp_star sum < 0
+            assert bool(((dp - 600.0 * divdp)[0] > 0).all())
+
+
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_subcycle_kernels_match_plain_and_count(cuda, dtype):
     m = _model(dtype, cuda)
