@@ -11,7 +11,8 @@ the result lines):
      (E=5400, 35 tracers x 72 levels), f32 and f64, with times: K1-K3 and
      the face trio K4 (in the five variants the face path takes), K5, K6;
      K1 bitwise at each stage kind, and its times at limiter iteration
-     caps 1, 2, 4 and 15
+     caps 1, 2, 4 and 15; K3 bitwise at alg 0 and 2, with its registers,
+     shared memory and resident blocks per SM
   4. the T-layout perf path, run_simulation(perf_config(30, f32,
      use_pallas=True)) in the production face DSS mode for 6 steps, then
      the same in gather mode (the path that runs K2): launch counts,
@@ -519,6 +520,18 @@ def main():
                  lambda: remap.remap_q_ppm_t(Qt, dps, dpr, alg=alg),
                  lambda: remap.remap_q_ppm_t_plain(Qt, dps, dpr, alg=alg),
                  "remap_q_ppm_t", (2 * F + 2 * lv) * es, F * OPS["ppm"])
+        check(all(a == 0.0 for n, e in errs.items() if n.startswith("K3")
+                  for a, _ in e), f"{dtype} K3 is not bitwise equal to its "
+              f"plain version: {[errs[f'K3 alg{a}'] for a in (0, 2)]}")
+        # K3's launch shape: registers and spills (ptxas), shared memory and
+        # resident blocks per SM (the occupancy API)
+        shape = remap.kernel_config(nq, nk, Qt.dtype)
+        regs = [u for u in ptxas_usage(_build.BUILD_DIR / "build.log")
+                if u.startswith(f"ppm_kernel<{dtype}>")]
+        line.append(f"K3 {'; '.join(regs) or 'ptxas report not found'}; "
+                    f"{shape['rows']} rows, {shape['threads']} threads, "
+                    f"{shape['smem_bytes']} B shared a block, "
+                    f"{shape['blocks_per_sm']} blocks/SM")
         # K4 in the face path's five variants, on a stage output with the
         # state as the time-average input; K5 and K6 on stage-1 bounds
         dp1 = (m.dp0col[None, None, :] - dt2 * divp).contiguous()

@@ -6,6 +6,7 @@ GPU machine it runs without the JAX package's test configuration:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -82,8 +83,8 @@ def test_kernels_match_plain(cuda, dtype):
     dps = (m.dp0col[None, None, :] - 3600.0 * divp).contiguous()
     dpr = dps.flip(-1).contiguous()          # same column totals
     for alg in (0, 2):
-        _close(remap.remap_q_ppm_t(Qt, dps, dpr, alg=alg),
-               remap.remap_q_ppm_t_plain(Qt, dps, dpr, alg=alg))
+        assert torch.equal(remap.remap_q_ppm_t(Qt, dps, dpr, alg=alg),
+                           remap.remap_q_ppm_t_plain(Qt, dps, dpr, alg=alg))
 
 
 # K1's edge cases, each (nlev, qsize, options): one element (E = 1), alone
@@ -151,6 +152,92 @@ def test_k1_edge_shapes_bitwise(cuda, dtype, case):
         if opt.get("neg"):
             # dp_star > 0, so element 0's weights spheremp*dp_star sum < 0
             assert bool(((dp - 600.0 * divdp)[0] > 0).all())
+
+
+def _ppm_columns(E, nq, nk, corrupt=False, seed=0):
+    """Qt [E,16,nq*nk], dp_star, dp_ref [E,16,nk] (f64, CPU): interface j
+    of the target grid at source-cell coordinate j + amp*sin(pi*j/nk), with
+    |amp| < min(2.9, nk/pi) (monotone, inside the cell-search window: at
+    nk >= 16 every shift -2..+3).  corrupt: row (0, 3) gets a negative
+    first target width, whose cell search asks for source cell -1 (the
+    kernel clamps it to 0), and a much wider top source cell in row (0, 5)."""
+    rng = np.random.default_rng(seed)
+    dp1 = rng.uniform(0.5, 1.5, (E, 16, nk)) * 100.0
+    pio = np.concatenate([np.zeros((E, 16, 1)), np.cumsum(dp1, -1)], -1)
+    j = np.arange(nk + 1)
+    amax = min(2.9, 0.95 * nk / np.pi)
+    coord = j + rng.uniform(-amax, amax, (E, 16, 1)) * np.sin(np.pi * j / nk)
+    pin = np.empty_like(pio)
+    for idx in np.ndindex(E, 16):
+        pin[idx] = np.interp(coord[idx], j, pio[idx])
+    dp2 = np.diff(pin, axis=-1)
+    q = rng.uniform(0.0, 1.0, (E, 16, nq, nk))
+    q[..., 1:3] = 1.0                                   # a flat stretch
+    q[:, :, 0] = (np.arange(nk) % 2)[None, None]        # two-level wiggle
+    if corrupt:
+        dp2[0, 3, 0] = -50.0
+        dp2[0, 3, 1] += 1050.0
+        dp1[0, 5, -1] += 1e4
+    Qt = (q * dp1[:, :, None, :]).reshape(E, 16, nq * nk)
+    return tuple(torch.from_numpy(a) for a in (Qt, dp1, dp2))
+
+
+# K3's edge cases, each (E, qsize, nlev, case): one element; one tracer and
+# 35; 4, 5, 7 and 72 levels; 44 levels (a main loop that its unroll does
+# not divide); a field that is not 16-byte aligned; a row count that leaves
+# the last block partial; displacements that select every shift -2..+3; a
+# corrupt width whose source cell is clamped into the column; tracer mass
+# outside the walk's inline-division range (tiny, huge, -0), whose columns
+# the kernel walks again with IEEE divisions
+K3_CASES = {
+    "e1_nq35_nk72": (1, 35, 72, None),
+    "nq1_nk72": (2, 1, 72, None),
+    "nq3_nk44": (2, 3, 44, None),
+    "unaligned_nk72": (1, 3, 72, "unaligned"),
+    "nq35_nk4": (2, 35, 4, None),
+    "nq4_nk5": (3, 4, 5, None),
+    "nq35_nk7": (2, 35, 7, None),
+    "partial_block": (4, 3, 16, "partial"),
+    "every_shift": (3, 4, 16, "shifts"),
+    "corrupt_width": (2, 3, 16, "corrupt"),
+    "extreme_mass": (2, 3, 72, "extreme"),
+}
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k3_edge_shapes_bitwise(cuda, dtype, case):
+    """K3 == remap_q_ppm_t_plain bitwise (NaNs equal) at alg 0, 1 and 2."""
+    E, nq, nk, kind = K3_CASES[case]
+    f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    Qt, dps, dpr = (a.to(cuda, f) for a in _ppm_columns(
+        E, nq, nk, corrupt=kind == "corrupt"))
+    if kind == "extreme":
+        Qt[0, 0, 5:9] = 1e-30
+        Qt[0, 0, 30] = 1e-35
+        Qt[0, 1, 20] = 1e35
+        Qt[1, 7, 40] = -0.0
+        Qt[1, 2, 10] = 1e-200                    # f64 only (0 in f32)
+    if kind == "unaligned":
+        buf = torch.empty(Qt.numel() + 1, dtype=f, device=cuda)
+        Qt = buf[1:].view_as(Qt).copy_(Qt)
+        assert Qt.data_ptr() % 16
+    if kind == "partial":
+        rows = remap.kernel_config(nq, nk, f)["rows"]
+        assert (E * 16) % rows, rows
+    shift = remap._level_terms(dps, dpr)[-1]
+    if kind == "shifts":
+        assert set(shift.unique().tolist()) == {-2, -1, 0, 1, 2, 3}
+    if kind == "corrupt":
+        # pio_l = 0 > tgt at level 0: the search says -1, the clamp 0
+        assert float(dpr[0, 3, 0]) < 0 and int(shift[0, 3, 0]) == 0
+    for alg in (0, 1, 2):
+        counters.reset()
+        got = remap.remap_q_ppm_t(Qt, dps, dpr, alg=alg)
+        assert counters.snapshot()["remap_q_ppm_t"] == 1
+        want = remap.remap_q_ppm_t_plain(Qt, dps, dpr, alg=alg)
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        assert bool(same.all()), (case, alg, (got - want).abs().max().item())
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])

@@ -20,27 +20,29 @@ E, NQ, NK = 3, 4, 16
 
 
 @functools.cache
-def columns(seed=0):
-    """Qt [E,16,NQ*NK], dp_star, dp_ref [E,16,NK] (f64 numpy): interface j
+def columns(seed=0, nq=NQ, nk=NK):
+    """Qt [E,16,nq*nk], dp_star, dp_ref [E,16,nk] (f64 numpy): interface j
     of the target grid sits at source-cell coordinate j + delta_j,
-    delta_j = amp*sin(pi*j/NK) with |amp| < 2.9 (monotone since
-    |d delta/dj| < 1; equal column totals).  That is every shift of the
-    kernel's search window -2..+3 (a displacement d selects cell
-    floor(d)+1 above), inside ppm_fast_margin's guard."""
+    delta_j = amp*sin(pi*j/nk) with |amp| < min(2.9, 0.95*nk/pi) (monotone
+    since |d delta/dj| = |amp|*pi/nk < 1; equal column totals).  At nk >= 16
+    that is every shift of the kernel's search window -2..+3 (a
+    displacement d selects cell floor(d)+1 above), inside ppm_fast_margin's
+    guard."""
     rng = np.random.default_rng(seed)
-    dp1 = rng.uniform(0.5, 1.5, (E, 16, NK)) * 100.0
+    dp1 = rng.uniform(0.5, 1.5, (E, 16, nk)) * 100.0
     pio = np.concatenate([np.zeros((E, 16, 1)), np.cumsum(dp1, -1)], -1)
-    j = np.arange(NK + 1)
-    amp = rng.uniform(-2.9, 2.9, (E, 16, 1))
-    coord = j + amp * np.sin(np.pi * j / NK)           # fixed ends
+    j = np.arange(nk + 1)
+    amax = min(2.9, 0.95 * nk / np.pi)
+    amp = rng.uniform(-amax, amax, (E, 16, 1))
+    coord = j + amp * np.sin(np.pi * j / nk)           # fixed ends
     pin = np.empty_like(pio)
     for idx in np.ndindex(E, 16):
         pin[idx] = np.interp(coord[idx], j, pio[idx])
     dp2 = np.diff(pin, axis=-1)
-    q = rng.uniform(0.0, 1.0, (E, 16, NQ, NK))
+    q = rng.uniform(0.0, 1.0, (E, 16, nq, nk))
     q[..., 5:9] = 1.0                                   # flat stretches
-    q[:, :, 0] = (np.arange(NK) % 2)[None, None]        # two-level wiggle
-    Qt = (q * dp1[:, :, None, :]).reshape(E, 16, NQ * NK)
+    q[:, :, 0] = (np.arange(nk) % 2)[None, None]        # two-level wiggle
+    Qt = (q * dp1[:, :, None, :]).reshape(E, 16, nq * nk)
     return Qt, dp1, dp2
 
 
@@ -55,17 +57,35 @@ def test_columns_cover_every_shift():
     assert float(tppm.ppm_fast_margin(_t(dp1), _t(dp2))) > 0
 
 
+# the plain version against the JAX kernel: the same formulation, with the
+# prefix sums associated differently (the JAX kernel's MXU prefix, the
+# port's sequential scan).  f64 relative to the field max; f32 relative to
+# the largest column mass, the scale of those prefix sums, whose roundoff
+# out[k] = massn[k] - massn[k-1] carries (at 72 levels a few f32 ulps of
+# the column mass are 2e-5 of the field max)
+PALLAS_TOL = {"f64": 1e-12, "f32": 1e-5}
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
 @pytest.mark.parametrize("alg", [0, 2])
-def test_remap_t_matches_jax_pallas_kernel(alg):
-    Qt, dp1, dp2 = columns()
+@pytest.mark.parametrize("nq", [4, 1])
+@pytest.mark.parametrize("nk", [16, 4, 7, 72])
+def test_remap_t_matches_jax_pallas_kernel(nk, nq, alg, dtype):
+    Qt, dp1, dp2 = columns(nq=nq, nk=nk)
+    if nk >= 16:
+        shift = remap._level_terms(_t(dp1), _t(dp2))[-1]
+        assert set(shift.unique().tolist()) == {-2, -1, 0, 1, 2, 3}
+    f = np.float64 if dtype == "f64" else np.float32
+    Qt, dp1, dp2 = (a.astype(f) for a in (Qt, dp1, dp2))
     want = np.asarray(remap_q_ppm_pallas_t(
         jnp.asarray(Qt), jnp.asarray(dp1), jnp.asarray(dp2), alg=alg,
         interpret=True))
     got = remap.remap_q_ppm_t(_t(Qt), _t(dp1), _t(dp2), alg=alg).numpy()
-    # the same formulation; prefix sums associate differently (the JAX
-    # kernel's doubling rolls and MXU prefix, the port's sequential scan)
+    assert got.dtype == want.dtype == f
+    scale = np.abs(want).max() if dtype == "f64" else \
+        np.abs(Qt).reshape(E, 16, nq, nk).sum(-1).max()
     np.testing.assert_allclose(got, want, rtol=0,
-                               atol=1e-12 * np.abs(want).max())
+                               atol=PALLAS_TOL[dtype] * scale)
 
 
 @pytest.mark.parametrize("alg", [0, 2])

@@ -52,6 +52,8 @@ ENTRIES = {
     "tse_laplace_wk_t": [P] * 4 + [I, I, P],
     # qdp dp_star dp_ref | out | E nq nk alg | stream
     "tse_remap_q_ppm_t": [P] * 4 + [I, I, I, I, P],
+    # nq nk | out[4]: K3's rows, threads, shared bytes per block, blocks/SM
+    "tse_ppm_config": [I, I, P],
     # x part rsp avg dp met deriv | out qmin qmax lap | E L nk flags | stream
     "tse_dss_face": [P] * 11 + [I, I, I, I, P],
     # x dp | qmin qmax | E L nk | stream

@@ -60,44 +60,57 @@ CAPS = (1, 2, 4, 15)
 N_TIMED = 7
 
 
-def build_variants(other=None):
-    """{name: ctypes library}, and the ptxas lines of euler_kernel; with
-    other (a csrc directory), also the variant "other" built from it."""
+def build_libs(out, source, sources, entries):
+    """Build source (a file name of csrc) once per variant, all nvcc calls
+    started together: sources {name: (csrc directory, ((old, new), ...))}
+    -> ({name: ctypes library with entries' argtypes}, {name: nvcc log})."""
     nvcc = _build.find_nvcc()
-    procs = {}
-    sources = {name: (_build.CSRC, edits) for name, edits in EDITS.items()}
-    if other is not None:
-        sources["other"] = (Path(other), ())
+    texts = {}
     for name, (csrc, edits) in sources.items():
-        s = (csrc / "euler.cu").read_text()
+        s = (Path(csrc) / source).read_text()
         for old, new in edits:
             if s.count(old) != 1:
-                raise RuntimeError(f"{name}: {old!r} is not in euler.cu "
+                raise RuntimeError(f"{name}: {old!r} is not in {source} "
                                    "exactly once")
             s = s.replace(old, new)
-        d = OUT / name
+        texts[name] = s
+    procs = {}
+    for name, (csrc, _) in sources.items():
+        d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "euler.cu").write_text(s)
+        (d / source).write_text(texts[name])
         for h in _build.HEADERS:
-            shutil.copy(csrc / h, d / h)
+            shutil.copy(Path(csrc) / h, d / h)
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-             str(d / "euler.cu")],
+             str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs, usage = {}, {}
+    libs, logs = {}, {}
     for name, p in procs.items():
         log = p.communicate()[0]
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        (OUT / name / "build.log").write_text(log)
-        usage[name] = euler_usage(log)
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(lib, "tse_fused_advect_limit" + suffix)
-            fn.argtypes = _build.ENTRIES["tse_fused_advect_limit"]
-            fn.restype = ctypes.c_int
+        (out / name / "build.log").write_text(log)
+        logs[name] = log
+        lib = ctypes.CDLL(str(out / name / "lib.so"))
+        for entry in entries:
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, entry + suffix)
+                fn.argtypes = _build.ENTRIES[entry]
+                fn.restype = ctypes.c_int
         libs[name] = lib
-    return libs, usage
+    return libs, logs
+
+
+def build_variants(other=None):
+    """{name: ctypes library}, and the ptxas lines of euler_kernel; with
+    other (a csrc directory), also the variant "other" built from it."""
+    sources = {name: (_build.CSRC, edits) for name, edits in EDITS.items()}
+    if other is not None:
+        sources["other"] = (Path(other), ())
+    libs, logs = build_libs(OUT, "euler.cu", sources,
+                            ("tse_fused_advect_limit",))
+    return libs, {name: euler_usage(log) for name, log in logs.items()}
 
 
 def euler_usage(log):

@@ -1,0 +1,169 @@
+"""Every CUDA kernel of the port launched once in every variant, each launch
+followed by a synchronize, so that a memory checker (or a fault) names the
+launch that went wrong.
+
+    python -m transport_se_tpu_torch.kernel_check [--only K3] [--builds N]
+
+from the repo root, on a CUDA device; under a checker, e.g.
+
+    compute-sanitizer --tool memcheck python -m transport_se_tpu_torch.kernel_check
+    compute-sanitizer --tool racecheck python -m transport_se_tpu_torch.kernel_check --only K3
+
+It builds an NE8 face model in f32 and in f64 (perf_config), and launches
+on each: K1 at its three stage kinds, K2, K3 at alg 0 and 2, K4 in the five
+variants of the face path, K5, K6, then one face subcycle; K7 in its four
+variants on every shard of an S = 2 band shard set; K10 on the NE8 std
+path's stage 0.  --only K3 launches K3 alone (both models).  --builds N
+first builds the NE30 f32 face model, its wind basis (K4) and its limiter
+bounds (K5, K6) N times, each followed by a synchronize (run it with
+CUDA_LAUNCH_BLOCKING=1 to stop at the launch that faults).  Prints one line
+per launch group and "kernel_check: ok" at the end.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from . import counters
+from .config import dcmip11_ne8, perf_config
+from .k1_variants import stage_args
+from .k3_variants import remap_args
+from .model import core
+from .model.wind_basis import build_wind_basis
+from .ops import band, dss_face, euler, limiter, remap
+from .parallel import face_sharded as fsm
+from .parallel import halo as halo_mod
+
+
+def sync(what):
+    torch.cuda.synchronize()
+    print(f"  {what}: ok", flush=True)
+
+
+def check_k3(dtype, dev, ne=8):
+    args = remap_args(dtype, dev, ne=ne)
+    for alg in (0, 2):
+        remap.remap_q_ppm_t(*args, alg=alg)
+        sync(f"{dtype} K3 alg {alg}")
+
+
+def check_face(dtype, dev, ne=8):
+    """K1-K6 and one face subcycle on the NE ne face model."""
+    stages = stage_args(dtype, dev, ne=ne)
+    for s, (args, kw) in enumerate(stages):
+        out = euler.fused_advect_limit(*args, **kw)
+        sync(f"{dtype} K1 stage {s}")
+    x = out[0]
+    cfg = perf_config(ne, dtype=dtype, use_pallas=True)
+    m = core.build_model(cfg, dev)
+    tb, E, nq, nk = m.tables, m.lon.shape[0], cfg.qsize, cfg.nlev
+    rsp16 = m.rspheremp.reshape(E, 16)
+    Q = (x.reshape(E, 16, nq, nk)
+         / m.dp0col[None, None, None, :]).reshape(x.shape)
+    euler.laplace_wk_t(Q, m.met, m.deriv)
+    sync(f"{dtype} K2")
+    check_k3(dtype, dev, ne)
+    dp = stages[1][0][2]
+    tb.dss_scale_t(x, rsp16)
+    tb.dss_scale_t(x, rsp16, avg=x)
+    tb.dss_scale_minmax_t(x, rsp16, dp, nq)
+    tb.dss_scale_minmax_t(x, rsp16, dp, nq, lap=True)
+    tb.dss_scale_minmax_t(x, rsp16, dp, nq, avg=x)
+    sync(f"{dtype} K4 scale, +avg, +min/max, +min/max+lap, +avg+min/max")
+    mn, mx = tb.minmax_prep(x, dp, nq)
+    sync(f"{dtype} K5")
+    tb.neighbor_minmax(mn, mx)
+    sync(f"{dtype} K6")
+    Qt = core._tp(core.initial_qdp(m), E, nq * nk)
+    counters.reset()
+    core.make_subcycle_fn(m, io_layout="t")(Qt, 0)
+    sync(f"{dtype} face subcycle, launches " + ", ".join(
+        f"{k} {v}" for k, v in counters.snapshot().items() if v))
+    return m, x, dp
+
+
+def check_band(m, x, dp, S=2):
+    """K7 in its four variants on every shard of S."""
+    g, ne, E = m.grid, m.cfg.ne, m.lon.shape[0]
+    nq, dev = m.cfg.qsize, x.device
+    plan = halo_mod.build_shard_plan(g, S)
+    ftd = dss_face.build_face_tables(g.part_idx, g.part_mask, ne)
+    stack = fsm.build_sharded_face_tables(g, plan, ftd)
+    roles = fsm.band_roles(plan, ftd, ne)
+    rsp16 = m.rspheremp.reshape(E, 16)
+    for r in range(S):
+        sl = slice(r * plan.eloc, (r + 1) * plan.eloc)
+        hg = torch.as_tensor(plan.halo_gid[r], device=dev)
+        t = fsm.ShardedFaceTables.from_stack(stack, roles, r, plan.nhalo,
+                                             dev, met=m.met[sl],
+                                             deriv=m.deriv)
+        halo = torch.where((hg >= 0)[:, None, None],
+                           x.index_select(0, hg.clamp(min=0)), 0.0)
+        ext = torch.cat([x[sl], halo])
+        for kw in ({}, dict(rsp=rsp16[sl]), dict(rsp=rsp16[sl], dp=dp[sl]),
+                   dict(rsp=rsp16[sl], dp=dp[sl], lap=True)):
+            band.dss_band(x[sl], ext, t, nq=nq, **kw)
+        sync(f"{m.cfg.dtype} K7 shard {r} of {S}: raw, scale, +min/max, "
+             "+min/max+lap")
+
+
+def check_k10(dev):
+    """K10 on the NE8 std path's stage 0 (DCMIP 1-1 winds at t = 0)."""
+    m = core.build_model(dcmip11_ne8(), dev)
+    c = m.cfg
+    Qdp = core.initial_qdp(m)
+    vn0 = core.dcmip.winds(c.test_case, m.lon, m.lat, m.etam, 0.0) \
+        * m.dp0col[None, :, None, None, None]
+    divdp = core.so.divergence_sphere(vn0, m.deriv, m.Dinv, m.metdet,
+                                      m.rmetdet)
+    zero = Qdp.new_zeros(Qdp.shape[:3])
+    Qtens, qmn, qmx, dp_star = core.euler_stage_tens(
+        m, Qdp, zero, zero, divdp, divdp, vn0, c.dt_tracer / 2.0, 0)
+    limiter.limiter_optim_stage(*core.limiter_args(m, Qtens, dp_star), qmn,
+                                qmx)
+    sync(f"{c.dtype} K10 stage 0")
+
+
+def check_builds(n, dev, ne=30):
+    """The NE ne f32 face model, its wind basis (K4) and its limiter bounds
+    (K5, K6), built n times."""
+    for i in range(n):
+        m = core.build_model(perf_config(ne, dtype="f32", use_pallas=True),
+                             dev)
+        E, nq, nk = m.lon.shape[0], m.cfg.qsize, m.cfg.nlev
+        build_wind_basis(m).eval(torch.tensor(m.cfg.tstep, dtype=m.dtype,
+                                              device=dev))
+        Qt = core._tp(core.initial_qdp(m), E, nq * nk)
+        dp0 = m.dp0col[None, None, :].expand(E, 16, nk).contiguous()
+        m.tables.neighbor_minmax(*m.tables.minmax_prep(Qt, dp0, nq))
+        sync(f"NE{ne} f32 model build {i + 1} of {n}")
+        del m, Qt, dp0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=("K3",),
+                    help="launch this kernel alone")
+    ap.add_argument("--builds", type=int, default=0,
+                    help="first build the NE30 f32 model this many times")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    check_builds(args.builds, dev)
+    for dtype in ("f32", "f64"):
+        if args.only == "K3":
+            check_k3(dtype, dev)
+            continue
+        m, x, dp = check_face(dtype, dev)
+        check_band(m, x, dp)
+        del m, x, dp
+    if args.only is None:
+        check_k10(dev)
+    print("kernel_check: ok", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -21,6 +21,8 @@ launches the kernel, anything else raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
@@ -178,3 +180,14 @@ def remap_q_ppm_t(Qt, dp_star, dp_ref, alg=0):
     _build.check(code, "remap_q_ppm_t")
     bump("remap_q_ppm_t")
     return out
+
+
+def kernel_config(nq, nk, dtype):
+    """The kernel's launch shape for nq tracers of nk levels on the current
+    card: rows and threads per block, shared-memory bytes per block and
+    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    Needs a CUDA device."""
+    buf = (ctypes.c_int * 4)()
+    fn = _build.entry("tse_ppm_config", _DTYPES[dtype])
+    _build.check(fn(int(nq), int(nk), buf), "ppm_config")
+    return dict(zip(("rows", "threads", "smem_bytes", "blocks_per_sm"), buf))
