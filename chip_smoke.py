@@ -38,8 +38,11 @@ the result lines):
      configuration) timed with CUDA events
  13. the banded face DSS K7 against its plain version at NE30 shapes, f32
      and f64, in its four variants, on every shard of 6 (row-aligned
-     chunks) and of 8 (chunks cut rows), bitwise; its raw and scale
+     chunks) and of 8 (chunks cut rows), bit for bit; its raw and scale
      variants against K4; its times at S = 1 (one shard holds the sphere)
+     and on shard 0 of S = 8 (partners in the halo); its registers and
+     spills per variant (ptxas) and its launch shape and resident blocks
+     per SM
  14. the sharded NE30 f32 face subcycle (perf_config, 35 tracers) through
      ThreadComm at S = 1, S = 8 and S = 8 with the face+overlap
      composition, against the single-device face subcycle: launch counts
@@ -127,6 +130,7 @@ GATHER_COUNTS = {"fused_advect_limit": 18, "laplace_wk_t": 6,
 # start and after the averaged third stage of the first two steps; K3
 # once; never K4, K6 or K2.
 SHARDED_SUBCYCLES = 4            # one warm-up, three timed
+K7_VARIANTS = ("raw", "scale", "scale+minmax", "scale+minmax+lap")
 SHARDED_S = 8
 
 
@@ -305,15 +309,17 @@ def ptxas_usage(log_path):
     for ln in log_path.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"([a-z_]+_kernel)I([fd])((?:Lb[01]E)*)",
-                          m.group(1))
+            k = re.search(r"([a-z_]+_kernel)I([fd])((?:Lb[01]E)*)"
+                          r"(?:Li(\d+)E)?", m.group(1))
             if k:
                 on = [f for f, b in zip(FLAG_NAMES.get(k.group(1), ()),
                                         re.findall(r"Lb([01])", k.group(3)))
                       if b == "1"]
+                # K7's last template argument: the lanes a thread owns
+                vec = [f"V{k.group(4)}"] if k.group(4) else []
                 name = (f"{k.group(1)}<"
                         + ",".join(["f32" if k.group(2) == "f" else "f64"]
-                                   + on) + ">")
+                                   + on + vec) + ">")
             else:
                 name = m.group(1)
         m = re.search(r"(\d+) bytes spill stores", ln)
@@ -340,6 +346,11 @@ def timed(torch, fn, n=N_TIMED):
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def bits(torch, a):
+    """a's bits as integers: -0 and +0 differ."""
+    return a.view(torch.int32 if a.element_size() == 4 else torch.int64)
 
 
 def rel_err(torch, got, want):
@@ -1045,7 +1056,8 @@ def main():
                     err = max((a - b).abs().max().item()
                               for a, b in zip(got, want))
                     k7["err"] = max(k7["err"], err)
-                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    check(all(torch.equal(bits(torch, a), bits(torch, b))
+                              for a, b in zip(got, want)),
                           f"K7 {dtype} S={S} {vname}: not bitwise equal to "
                           f"its plain version (max abs {err:.3e})")
                     if vname in k4:
@@ -1077,10 +1089,26 @@ def main():
             tb.append(bound(*dss_cost(
                 E, L, nk, es, minmax="dp" in kw, lap=kw.get("lap", False),
                 scale="rsp" in kw, part=4), dtype))
+        # times on shard 0 of S = 8: 675 elements, partners in the halo
+        sl8, hg8, t8, _ = next(band_shards(m13, 8))
+        x8 = x[sl8]
+        halo8 = torch.where((hg8 >= 0)[:, None, None],
+                            x.index_select(0, hg8.clamp(min=0)), 0.0)
+        t8k = [timed(torch, lambda: band.dss_band(x8, halo8, t8, nq=nq,
+                                                  **kw))
+               for kw in band_variants(sl8, rsp16, dp1).values()]
+        del x8, halo8, t8
         A = dss_matrix(torch, m13.tables.face.part, rsp16)
         lib_ms = timed(torch, lambda: torch.sparse.mm(A, x.reshape(E * 16,
                                                                    L)))
         del A
+        # the launch shape of each variant and the registers of each
+        # instantiation (V: lanes a thread)
+        shapes = [band.kernel_config(L, nk, x.dtype, rsp=v != "raw",
+                                     dp="minmax" in v, lap=v.endswith("lap"))
+                  for v in K7_VARIANTS]
+        regs = [u for u in ptxas_usage(_build.BUILD_DIR / "build.log")
+                if u.startswith(f"dss_band_kernel<{dtype}")]
         say(f"phase 13 K7 vs plain NE{NE} {dtype}, {nq} x {nk} lanes, "
             f"every shard of " + ", ".join(notes) + ", raw/scale/"
             "scale+minmax/scale+minmax+lap: bitwise equal to dss_band_plain "
@@ -1090,10 +1118,17 @@ def main():
             "median of 5) " + ", ".join(
                 f"{v} {a:.3f} ms (plain {b:.3f}, bound {c[0]:.3f} by "
                 f"{c[1]})" for v, a, b, c in zip(
-                    ("raw", "scale", "scale+minmax", "scale+minmax+lap"),
-                    tk, tp, tb))
-            + f"; scale as one torch.sparse.mm call {lib_ms:.3f} ms; on "
-            + card)
+                    K7_VARIANTS, tk, tp, tb))
+            + "; shard 0 of S=8 times " + ", ".join(
+                f"{v} {a:.3f} ms" for v, a in zip(K7_VARIANTS, t8k))
+            + f"; scale as one torch.sparse.mm call {lib_ms:.3f} ms; launch "
+            "shape (lanes a thread/threads/lane groups an element/shared B "
+            "a block/resident blocks an SM) " + ", ".join(
+                f"{v} {c['vec']}/{c['threads']}/{c['groups']}/"
+                f"{c['smem_bytes']}/{c['blocks_per_sm']}"
+                for v, c in zip(K7_VARIANTS, shapes))
+            + "; ptxas " + "; ".join(regs or ["report not found"])
+            + "; on " + card)
         if dtype == "f32":
             results["dss_band"] = dict(
                 ms=statistics.mean(tk), plain_ms=statistics.mean(tp),

@@ -199,6 +199,104 @@ def test_band_plain_matches_jax_kernel(ne, S):
                                     for a, b in zip(mm, got))
 
 
+def _edge_inputs(E, dtype, seed):
+    """x [E, 16, 2*8] and dp [E, 16, 8] (2 tracers, 8 levels) at the edges
+    of K7's inline division (common.cuh tse::Bits: out/dp is inline while
+    |out| lies in 2^-+100 (f32) / 2^-+400 (f64) or out is +0, and dp in
+    2^-+20 / 2^-+400): lanes of zeros, of -0, of magnitudes below and above
+    the out range (every partner too, so the assembled slot stays there),
+    scattered -0 and negative values; dp at both ends of its range on
+    levels 0 and 1 and just outside it in some elements on level 2.  Tiny
+    and huge lanes sit on levels with dp near 1, so q stays normal and
+    finite and the Laplacian does not overflow; each has one sign, so no
+    sum cancels to a subnormal (which XLA on the CPU flushes to zero and
+    PyTorch keeps)."""
+    f = np.float32 if dtype == "f32" else np.float64
+    big, lim = (100, 20) if dtype == "f32" else (400, 400)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((E, N2, 2, 8)).astype(f)
+    x[:, :, 0, 3] = 0.0
+    x[:, :, 1, 3] = -0.0
+    x[:, :, 0, 4] = f(2.0 ** -(big + 20)) * rng.uniform(1, 2, (E, N2))
+    x[:, :, 1, 4] = f(-2.0 ** (big + 1)) * rng.uniform(1, 1.5, (E, N2))
+    x[::3, ::5, 0, 5] = -0.0
+    x[::2, :, 1, 5] = -np.abs(x[::2, :, 1, 5])
+    dp = rng.uniform(0.5, 2.0, (E, N2, 8)).astype(f)
+    dp[:, :, 0] = f(2.0 ** lim)
+    dp[:, :, 1] = f(2.0 ** -lim)
+    dp[::5, 7, 2] = np.nextafter(f(2.0 ** lim), f(np.inf))
+    dp[1::5, 9, 2] = np.nextafter(f(2.0 ** -lim), f(0))
+    return x.reshape(E, N2, 16), dp
+
+
+@pytest.mark.parametrize("ne,S", [(4, 8), (6, 1)])
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_band_plain_matches_jax_kernel_edges(ne, S, dtype):
+    """dss_band_plain against the JAX Pallas band kernel (interpret mode)
+    on inputs at the edges of K7's inline division, every shard: out, qmin
+    and qmax bitwise, the Laplacian within 1e-5 (f32) / 1e-12 (f64) of the
+    field max (the two associate the 4x4 contractions differently).  The
+    one difference in the bits is the sign of a zero: where every present
+    term of a slot is -0, the Pallas kernel gives -0 and the JAX XLA band
+    assembly +0, as the port's plain version and K7 do (their chains add
+    the absent terms as +0); out is held to the XLA assembly bit for bit."""
+    g, plan, ftd, stack = _tables(ne, S)
+    roles = fs.band_roles(plan, ftd, ne)
+    jg = jbuild_grid(ne, order="raster")
+    jstack = jfs.build_sharded_face_tables(jg, jbuild_plan(jg, S),
+                                           jface_tables(jg))
+    jdims = jstack.pop("_dims")
+    nq = 2
+    x, dp_all = _edge_inputs(g.nelem, dtype, seed=ne * 31 + S)
+    tt = torch.float32 if dtype == "f32" else torch.float64
+    ibits = torch.int32 if dtype == "f32" else torch.int64
+    t64 = {k: torch.tensor(np.asarray(getattr(g, k))) for k in
+           ("Dinv", "metdet", "rmetdet", "spheremp")}
+    met = metric_pack(**t64).to(tt)
+    rsp_all = torch.tensor(g.rspheremp.reshape(g.nelem, N2)).to(tt)
+    tol = 1e-5 if dtype == "f32" else 1e-12
+    slow = 0
+    for s in range(S):
+        sl, xs, ext = _shard_inputs(g, plan, s, x)
+        xs, ext = xs.astype(x.dtype), ext.astype(x.dtype)
+        t = fs.ShardedFaceTables.from_stack(
+            stack, roles, s, plan.nhalo, "cpu", met=met[sl],
+            deriv=torch.tensor(g.deriv).to(tt))
+        jt = jfs.tables_from_stack(
+            {k: jnp.asarray(v[s]) for k, v in jstack.items()}, jdims)
+        got = band.dss_band(torch.tensor(xs), torch.tensor(ext), t,
+                            rsp=rsp_all[sl], dp=torch.tensor(dp_all[sl]),
+                            nq=nq, lap=True)
+        want = dss_band_pallas(
+            jnp.asarray(xs), jnp.asarray(ext), jt, rsp_band=jt.band_rsp,
+            dp=jnp.asarray(dp_all[sl]), nq=nq, met_band=jt.band_met,
+            deriv=jg.deriv, interpret=True)
+        for name, a, b in zip(("out", "qmin", "qmax"), got[:3], want[:3]):
+            b = torch.from_numpy(np.array(b))
+            assert a.dtype == b.dtype == tt, name
+            same = a.view(ibits) == b.view(ibits)
+            assert bool((same | ((a == 0) & (b == 0))).all()), (s, name)
+        xla = torch.from_numpy(np.array(jfs.dss_sum_t_face_band(
+            jnp.asarray(xs), jnp.asarray(ext), jt))) * rsp_all[sl][:, :, None]
+        assert torch.equal(got[0].view(ibits), xla.view(ibits)), s
+        lap = torch.from_numpy(np.array(want[3]))
+        assert bool(torch.isfinite(got[3]).all())
+        scale = lap.abs().max().item()
+        assert (got[3] - lap).abs().max().item() <= tol * scale, s
+        # the edges are reached: +0 slots from -0 inputs, slots outside
+        # the out range, and elements with a dp outside the dp range
+        out = got[0].reshape(-1, N2, 2, 8)
+        assert bool((out[..., 1, 3].view(ibits) == 0).all())
+        assert float(out[..., 0, 4].abs().max()) < 2.0 ** -(
+            100 if dtype == "f32" else 400)
+        assert float(out[..., 1, 4].abs().min()) > 2.0 ** (
+            100 if dtype == "f32" else 400)
+        slow += int((dp_all[sl] != np.clip(dp_all[sl], 2.0 ** -(
+            20 if dtype == "f32" else 400), 2.0 ** (
+                20 if dtype == "f32" else 400))).any(axis=(1, 2)).sum())
+    assert slow > 0
+
+
 def test_band_against_single_device_face_dss():
     """K7 and K4 differ only in the association at three-partner slots."""
     ne, S = 4, 4

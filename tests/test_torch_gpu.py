@@ -456,6 +456,159 @@ def test_band_kernel_matches_plain(cuda, dtype, S):
                 assert torch.equal(a, b) and torch.equal(c, b), kw
 
 
+def _edge_band_fields(E, dtype, seed):
+    """x [E, 16, 2*8] and dp [E, 16, 8] at the edges of K7's inline
+    division, as tests/test_torch_band.py _edge_inputs makes them (that
+    test holds the plain version to the JAX kernel on them): lanes of
+    zeros, of -0, below and above the out range, scattered -0 and
+    negative values; dp at both ends of its range and just outside it in
+    some elements."""
+    f = np.float32 if dtype == "f32" else np.float64
+    big, lim = (100, 20) if dtype == "f32" else (400, 400)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((E, 16, 2, 8)).astype(f)
+    x[:, :, 0, 3] = 0.0
+    x[:, :, 1, 3] = -0.0
+    x[:, :, 0, 4] = f(2.0 ** -(big + 20)) * rng.uniform(1, 2, (E, 16))
+    x[:, :, 1, 4] = f(-2.0 ** (big + 1)) * rng.uniform(1, 1.5, (E, 16))
+    x[::3, ::5, 0, 5] = -0.0
+    x[::2, :, 1, 5] = -np.abs(x[::2, :, 1, 5])
+    dp = rng.uniform(0.5, 2.0, (E, 16, 8)).astype(f)
+    dp[:, :, 0] = f(2.0 ** lim)
+    dp[:, :, 1] = f(2.0 ** -lim)
+    dp[::5, 7, 2] = np.nextafter(f(2.0 ** lim), f(np.inf))
+    dp[1::5, 9, 2] = np.nextafter(f(2.0 ** -lim), f(0))
+    return x.reshape(E, 16, 16), dp
+
+
+# K7's edge cases, each (ne, S, nq, nk, kind): one element and three as a
+# shard of their own (kind: the elements; every other element is their
+# halo); fewer lanes than a warp; lane counts that 4 (f32) or 2 (f64) do
+# not divide, so a thread takes one lane; one level; one tracer; the NE30
+# lanes (35 x 72, several passes and lane groups) at S = 1 and 8; fields
+# that are not 16-byte aligned; and the inline division's edge operands
+# (above) at S = 1, 2 and 8, so that some columns of a warp divide with
+# IEEE divisions and others not, and some elements' dp leave the range
+K7_CASES = {
+    "e1": (2, 1, 3, 4, [5]),
+    "few_elements": (2, 1, 3, 8, [0, 7, 13]),
+    "S2_L12": (2, 2, 3, 4, None),
+    "S1_L21": (2, 1, 3, 7, None),
+    "S2_L30": (2, 2, 5, 6, None),
+    "nk1": (2, 2, 5, 1, None),
+    "nq1_nk72": (2, 2, 1, 72, None),
+    "nq35_nk72_S1": (2, 1, 35, 72, None),
+    "nq35_nk72_S8": (4, 8, 35, 72, None),
+    "unaligned": (2, 2, 4, 8, "unaligned"),
+    "edges_S1": (2, 1, 2, 8, "edges"),
+    "edges_S2": (2, 2, 2, 8, "edges"),
+    "edges_S8": (4, 8, 2, 8, "edges"),
+}
+K7_VARIANTS = ({}, dict(scale=True), dict(scale=True, minmax=True),
+               dict(scale=True, minmax=True, lap=True))
+
+
+def _k7_launches(case, dtype, dev):
+    """[(x, halo, tables, kwargs, want)] of one K7 case on dev: every
+    shard (or the sub-shard) in each of the four variants; want is the
+    plain version's result (computed on dev)."""
+    from transport_se_tpu_torch.grid.cubesphere import build_grid
+    from transport_se_tpu_torch.ops import band
+    from transport_se_tpu_torch.ops.dss_face import build_face_tables
+    from transport_se_tpu_torch.parallel import face_sharded as fs
+    from transport_se_tpu_torch.parallel.halo import build_shard_plan
+    ne, S, nq, nk, kind = K7_CASES[case]
+    f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    g = build_grid(ne, order="raster")
+    E = g.nelem
+    plan = build_shard_plan(g, S)
+    ftd = build_face_tables(g.part_idx, g.part_mask, ne)
+    stack = fs.build_sharded_face_tables(g, plan, ftd)
+    roles = fs.band_roles(plan, ftd, ne)
+    if kind == "edges":
+        xn, dpn = _edge_band_fields(E, dtype, seed=ne * 7 + S)
+    else:
+        rng = np.random.default_rng(ne * 7 + S + nq * nk)
+        xn = rng.standard_normal((E, 16, nq * nk))
+        dpn = rng.uniform(0.5, 2.0, (E, 16, nk))
+    x = torch.from_numpy(xn).to(dev, f)
+    dp = torch.from_numpy(dpn).to(dev, f)
+    met = euler.metric_pack(**{k: torch.tensor(np.asarray(getattr(g, k)))
+                               for k in ("Dinv", "metdet", "rmetdet",
+                                         "spheremp")}).to(dev, f)
+    rsp = torch.tensor(g.rspheremp.reshape(E, 16)).to(dev, f)
+    deriv = torch.tensor(g.deriv).to(dev, f)
+    if kind == "unaligned":
+        buf = torch.empty(x.numel() + 1, dtype=f, device=dev)
+        x = buf[1:].view_as(x).copy_(x)
+        assert x.data_ptr() % 16
+    out = []
+    for r in range(S):
+        sl = slice(r * plan.eloc, (r + 1) * plan.eloc)
+        t = fs.ShardedFaceTables.from_stack(stack, roles, r, plan.nhalo, dev,
+                                            met=met[sl], deriv=deriv)
+        hg = torch.as_tensor(plan.halo_gid[r], device=dev)
+        halo = torch.where((hg >= 0)[:, None, None],
+                           x.index_select(0, hg.clamp(min=0)), 0.0)
+        if kind == "unaligned":
+            hb = torch.empty(halo.numel() + 1, dtype=f, device=dev)
+            halo = hb[1:].view_as(halo).copy_(halo)
+        for v in K7_VARIANTS:
+            kw = dict(nq=nq, lap=v.get("lap", False))
+            if v.get("scale"):
+                kw["rsp"] = rsp[sl]
+            if v.get("minmax"):
+                kw["dp"] = dp[sl]
+            xs = x[sl]
+            if isinstance(kind, list):
+                # the elements of kind as a shard of their own: their
+                # partners among them local, the others from the halo x
+                sel = torch.as_tensor(kind, device=dev)
+                want = band.dss_band_plain(x, halo, t, **kw)
+                want = want[sel] if "dp" not in kw else tuple(
+                    w[sel] for w in want)
+                slot = t.role.long()
+                el = slot // 16
+                loc = torch.full((E,), -1, dtype=torch.long, device=dev)
+                loc[sel] = torch.arange(len(kind), device=dev)
+                sub = torch.where(loc[el.clamp(min=0)] >= 0,
+                                  loc[el.clamp(min=0)] * 16 + slot % 16,
+                                  len(kind) * 16 + slot)
+                sub = torch.where(slot >= 0, sub, -1)[sel]
+                ts = dataclasses.replace(
+                    t, eloc=len(kind), nhalo=E, role=sub.to(torch.int32),
+                    met=t.met[sel])
+                sk = {k: (a[sel] if isinstance(a, torch.Tensor) else a)
+                      for k, a in kw.items()}
+                out.append((x[sel], x, ts, sk, want))
+            else:
+                out.append((xs, halo, t, kw,
+                            band.dss_band_plain(xs, halo, t, **kw)))
+    return out
+
+
+def _bits(a):
+    return a.view(torch.int32 if a.element_size() == 4 else torch.int64)
+
+
+@pytest.mark.parametrize("case", list(K7_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k7_edge_shapes_bitwise(cuda, dtype, case):
+    """K7 == dss_band_plain bit for bit (-0 and +0 apart) in its four
+    variants on every shard."""
+    from transport_se_tpu_torch.ops import band
+    for x, halo, t, kw, want in _k7_launches(case, dtype, cuda):
+        counters.reset()
+        got = band.dss_band(x, halo, t, **kw)
+        assert counters.snapshot()["dss_band"] == 1
+        if isinstance(want, torch.Tensor):
+            got, want = (got,), (want,)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b)), (
+                case, sorted(kw), (a - b).abs().max().item())
+
+
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_sharded_face_subcycle_on_card(cuda, dtype):
     """The sharded face subcycle through K7 in 4 threads == in 1 thread,

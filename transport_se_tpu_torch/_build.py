@@ -62,6 +62,9 @@ ENTRIES = {
     "tse_neighbor_minmax": [P] * 5 + [I, I, P],
     # x halo role rsp dp met deriv | out qmin qmax lap | E L nk flags | stream
     "tse_dss_band": [P] * 11 + [I, I, I, I, P],
+    # L nk flags | out[5]: K7's lanes a thread, threads, lane groups an
+    # element, shared bytes per block, blocks/SM
+    "tse_band_config": [I, I, I, P],
     # ptens sph dpmass minp maxp | out minp_o maxp_o | n sph_rep sph_inner
     # dp_rep dp_inner | tol | stream
     "tse_limiter_optim": [P] * 8 + [LL] * 5 + [D, P],

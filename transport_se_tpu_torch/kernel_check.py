@@ -30,11 +30,10 @@ from . import counters
 from .config import dcmip11_ne8, perf_config
 from .k1_variants import stage_args
 from .k3_variants import remap_args
+from .k7_variants import halo_rows, shard
 from .model import core
 from .model.wind_basis import build_wind_basis
-from .ops import band, dss_face, euler, limiter, remap
-from .parallel import face_sharded as fsm
-from .parallel import halo as halo_mod
+from .ops import band, euler, limiter, remap
 
 
 def sync(what):
@@ -86,22 +85,11 @@ def check_face(dtype, dev, ne=8):
 
 def check_band(m, x, dp, S=2):
     """K7 in its four variants on every shard of S."""
-    g, ne, E = m.grid, m.cfg.ne, m.lon.shape[0]
-    nq, dev = m.cfg.qsize, x.device
-    plan = halo_mod.build_shard_plan(g, S)
-    ftd = dss_face.build_face_tables(g.part_idx, g.part_mask, ne)
-    stack = fsm.build_sharded_face_tables(g, plan, ftd)
-    roles = fsm.band_roles(plan, ftd, ne)
+    E, nq = m.lon.shape[0], m.cfg.qsize
     rsp16 = m.rspheremp.reshape(E, 16)
     for r in range(S):
-        sl = slice(r * plan.eloc, (r + 1) * plan.eloc)
-        hg = torch.as_tensor(plan.halo_gid[r], device=dev)
-        t = fsm.ShardedFaceTables.from_stack(stack, roles, r, plan.nhalo,
-                                             dev, met=m.met[sl],
-                                             deriv=m.deriv)
-        halo = torch.where((hg >= 0)[:, None, None],
-                           x.index_select(0, hg.clamp(min=0)), 0.0)
-        ext = torch.cat([x[sl], halo])
+        sl, hg, t = shard(m, S, r)
+        ext = torch.cat([x[sl], halo_rows(x, hg)])
         for kw in ({}, dict(rsp=rsp16[sl]), dict(rsp=rsp16[sl], dp=dp[sl]),
                    dict(rsp=rsp16[sl], dp=dp[sl], lap=True)):
             band.dss_band(x[sl], ext, t, nq=nq, **kw)

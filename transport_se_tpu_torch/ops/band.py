@@ -18,6 +18,8 @@ the two agree to the last bit.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
@@ -26,7 +28,7 @@ from ..parallel.face_sharded import ShardedFaceTables, dss_sum_t_face_band
 from .euler import _DTYPES, N2, _check, _device_kind, _lap_wk, _met_rows, \
     _stream
 
-__all__ = ["dss_band", "dss_band_plain"]
+__all__ = ["dss_band", "dss_band_plain", "kernel_config"]
 
 
 def _halo_of(x, ext, t: ShardedFaceTables):
@@ -134,3 +136,18 @@ def dss_band(x, ext, t: ShardedFaceTables, rsp=None, dp=None, nq=None,
     if dp is None:
         return out
     return (out, qmin, qmax) + ((lapo,) if lap else ())
+
+
+def kernel_config(L, nk, dtype, rsp=True, dp=True, lap=False):
+    """The kernel's launch shape for one variant (scale by rsp, min/max
+    with dp, Laplacian) on L lanes of nk levels, for 16-byte-aligned
+    fields, on the current card: lanes per thread, threads per block, lane
+    groups per element, dynamic shared-memory bytes per block and resident
+    blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs
+    a CUDA device."""
+    buf = (ctypes.c_int * 5)()
+    fn = _build.entry("tse_band_config", _DTYPES[dtype])
+    flags = int(rsp) | int(dp) << 1 | int(lap) << 2
+    _build.check(fn(int(L), int(nk), flags, buf), "band_config")
+    return dict(zip(("vec", "threads", "groups", "smem_bytes",
+                     "blocks_per_sm"), buf))
