@@ -12,7 +12,9 @@ the result lines):
      the face trio K4 (in the five variants the face path takes), K5, K6;
      K1 bitwise at each stage kind, and its times at limiter iteration
      caps 1, 2, 4 and 15; K3 bitwise at alg 0 and 2, with its registers,
-     shared memory and resident blocks per SM
+     shared memory and resident blocks per SM; K5 bitwise on the sphere
+     and on every shard of S = 8, with its registers and spills, launch
+     shape and resident blocks per SM
   4. the T-layout perf path, run_simulation(perf_config(30, f32,
      use_pallas=True)) in the production face DSS mode for 6 steps, then
      the same in gather mode (the path that runs K2): launch counts,
@@ -25,7 +27,11 @@ the result lines):
      under torch.profiler: device ms by kernel name and the idle share
   8. the row limiter K10 against its plain version at NE30 std shapes
      (1,555,200 rows of the DCMIP 1-1 stage 0 with its neighbor bounds),
-     f32 and f64, with times
+     f32 and f64, bitwise, with times, registers and spills, launch shape
+     and resident blocks per SM; then on the nine limiter inputs of the
+     third subcycle of phase 12's configuration (steady state, f64):
+     bitwise, its time, and the share of rows limited and relaxed and the
+     histogram of iteration passes per row
   9. one NE8 f64 std-layout subcycle in gather and in segsum mode, kernels
      against plain versions; segsum twice, bitwise
  10. the CLI (python -m transport_se_tpu_torch.main, one subprocess per
@@ -363,7 +369,7 @@ def rel_err(torch, got, want):
 def port_modules():
     """The port's modules this script drives, imported (the script's one
     import block of the port)."""
-    from transport_se_tpu_torch import _build, counters
+    from transport_se_tpu_torch import _build, counters, k10_variants
     from transport_se_tpu_torch.config import (dcmip11_ne8, dcmip11_ne30,
                                                dcmip12_ne30, perf_config)
     from transport_se_tpu_torch.model import core, driver, wind_basis
@@ -372,7 +378,8 @@ def port_modules():
                                             remap)
     from transport_se_tpu_torch.parallel import (comm, face_sharded, halo,
                                                  sharded)
-    return dict(_build=_build, counters=counters, dcmip11_ne8=dcmip11_ne8,
+    return dict(_build=_build, counters=counters, k10_variants=k10_variants,
+                dcmip11_ne8=dcmip11_ne8,
                 dcmip11_ne30=dcmip11_ne30, dcmip12_ne30=dcmip12_ne30,
                 perf_config=perf_config, core=core, driver=driver,
                 wind_basis=wind_basis, history_norms=history_norms,
@@ -569,6 +576,29 @@ def main():
         hold("K5", lambda: tb.minmax_prep(out0, dp1, nq),
              lambda: tb.minmax_prep(out0, dp1, nq, plain=True),
              "minmax_prep", (F + lv + 2 * EL) * es, EL * 16 * OPS["minmax"])
+        # K5 bit for bit (-0 included) on the sphere and on every shard
+        # of S = 8 (the sharded path's calls, chunks of the raster order),
+        # with its launch shape
+        eloc = E // SHARDED_S
+        for sl in [slice(0, E)] + [slice(r * eloc, (r + 1) * eloc)
+                                   for r in range(SHARDED_S)]:
+            got = tb.minmax_prep(out0[sl], dp1[sl], nq)
+            want = tb.minmax_prep(out0[sl], dp1[sl], nq, plain=True)
+            check(all(torch.equal(bits(torch, a), bits(torch, b))
+                      for a, b in zip(got, want)),
+                  f"{dtype} K5 on elements {sl.start}:{sl.stop} is not "
+                  "bitwise equal to its plain version")
+            del got, want
+        shape = mods["dss_face"].kernel_config(nq * nk, nk, Qt.dtype)
+        regs = [u for u in ptxas_usage(_build.BUILD_DIR / "build.log")
+                if u.startswith(f"minmax_kernel<{dtype}")]
+        regs = "; ".join(regs) or "ptxas report not found"
+        line.append(f"K5 bitwise on the sphere and every shard of S="
+                    f"{SHARDED_S}; {regs}; {shape['vec']} lanes a thread, "
+                    f"{shape['threads']} "
+                    f"threads, {shape['groups']} lane groups an element, "
+                    f"{shape['smem_bytes']} B shared a block, "
+                    f"{shape['blocks_per_sm']} blocks/SM")
         bmn, bmx = tb.minmax_prep(out0, dp1, nq)
         hold("K6", lambda: tb.neighbor_minmax(bmn, bmx),
              lambda: tb.neighbor_minmax(bmn, bmx, plain=True),
@@ -811,6 +841,9 @@ def main():
         torch.cuda.synchronize()
         errs = [rel_err(torch, g, w) for g, w in zip(got + got_f, want * 2)]
         worst = max(r for _, r in errs)
+        check(all(torch.equal(bits(torch, g), bits(torch, w))
+                  for g, w in zip(got + got_f, want * 2)),
+              f"K10 {dtype}: not bitwise equal to its plain version")
         limited = (want[0] != ptens).any(-1).double().mean().item()
         relaxed = ((want[1] != qmn) | (want[2] != qmx)).double().mean().item()
         del got, want, got_f, full
@@ -822,20 +855,54 @@ def main():
         b_ms, b_by = bound(nbytes, nrows * OPS["limiter_iter"], dtype)
         check(worst <= TOL[dtype], f"K10 {dtype}: kernel vs plain rel err "
               f"{worst:.3e} > {TOL[dtype]:.0e}")
+        # K10's launch shape and registers
+        shape = limiter.kernel_config(ptens.dtype)
+        regs = [u for u in ptxas_usage(_build.BUILD_DIR / "build.log")
+                if u.startswith(f"limiter_kernel<{dtype}")]
         say(f"phase 8 K10 vs plain NE30 {dtype}, {nrows} rows of the DCMIP "
             f"1-1 stage 0 ({limited:.1%} of rows limited, {relaxed:.1%} with "
             f"a relaxed bound; stage operands, and [N, 16] operands through "
-            f"limiter_optim_iter_full): max abs "
+            f"limiter_optim_iter_full): bitwise equal, max abs "
             f"{max(a for a, _ in errs):.3e}, max rel {worst:.3e} (tol "
             f"{TOL[dtype]:.0e}); {ms_k:.3f} ms (plain {ms_p:.3f} ms), "
             f"{nbytes / 1e9:.3f} GB moved, {nbytes / ms_k / 1e9:.3f} TB/s; "
-            f"bound {b_ms:.3f} ms by {b_by}")
+            f"bound {b_ms:.3f} ms by {b_by}; "
+            f"{'; '.join(regs) or 'ptxas report not found'}; "
+            f"{shape['row_lanes']} lanes a row, {shape['threads']} threads "
+            f"a block, {shape['blocks_per_sm']} blocks/SM")
         if dtype == "f64":
             results["limiter_optim"] = dict(
                 max_abs_err=max(a for a, _ in errs), ms=ms_k, plain_ms=ms_p,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
         del ptens, sph, dps, qmn, qmx, args
         torch.cuda.empty_cache()
+    # K10 on the limiter input of a steady-state std NE30 f64 subcycle: the
+    # nine launches of the third subcycle of phase 12's configuration
+    k10v = mods["k10_variants"]
+    m8 = build_model(dcmip12_ne30(), dev)
+    steady = k10v.steady_inputs(m8)
+    del m8
+    for a in steady:
+        want = limiter.limiter_optim_stage(*a, plain=True)
+        pt, sp, dps, mn, mx = a
+        got = limiter.limiter_optim_stage(*a)
+        got += limiter.limiter_optim_iter_full(
+            pt, sp[:, None, None].expand(pt.shape).contiguous(), mn, mx,
+            dps[:, None].expand(pt.shape).contiguous())
+        check(all(torch.equal(bits(torch, g), bits(torch, w))
+                  for g, w in zip(got, want * 2)),
+              "K10 f64 on the steady-state input: not bitwise equal to its "
+              "plain version")
+        del want, got
+    ms_s = timed(torch, lambda: [limiter.limiter_optim_stage(*a)
+                                 for a in steady])
+    say(f"phase 8 K10 on the steady-state std NE30 f64 DCMIP 1-2 input (the "
+        f"{len(steady)} launches of the third subcycle), stage and [N, 16] "
+        f"operands bitwise equal to the plain version: {ms_s:.3f} ms for "
+        f"the {len(steady)}, {ms_s / len(steady):.3f} ms a launch; "
+        + k10v.describe(steady))
+    del steady
+    torch.cuda.empty_cache()
 
     # ---- 9. NE8 f64 std-layout subcycles, gather and segsum --------------
     dcmip11_ne8 = mods["dcmip11_ne8"]

@@ -224,3 +224,84 @@ def test_wrappers_check_their_inputs(grids):
     with pytest.raises(ValueError, match="shape"):
         tdf.neighbor_minmax(x[:, 0].contiguous(),
                              x[:, 1, :-1].contiguous(), ft)
+
+
+def _same_bits(got, want):
+    """Bitwise, -0 and +0 apart."""
+    got, want = got.numpy(), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    u = np.uint32 if got.dtype == np.float32 else np.uint64
+    np.testing.assert_array_equal(got.view(u), want.view(u))
+
+
+def _division_edges(dtype, seed):
+    """x [E,16,L], dp [E,16,nk] of the bound prep with the inline
+    division's edge operands (common.cuh Bits): columns of +0, of -0
+    beside positive values, of tracer mass below and at the range's lower
+    end (2^-100 f32, 2^-400 f64) and at its upper end; in f32 layer widths
+    at and just beyond 2^-20 and 2^20."""
+    f = np.dtype(dtype)
+    rng = np.random.default_rng(seed)
+    E, nq, nk = 5, 3, 4
+    x = rng.uniform(-0.5, 2.0, (E, 16, nq * nk)).astype(f)
+    dp = rng.uniform(0.5, 2.0, (E, 16, nk)).astype(f)
+    lo = 2.0 ** (-100 if f == np.float32 else -400)
+    hi = 2.0 ** (100 if f == np.float32 else 400)
+    x[0, :, 0] = 0.0
+    x[0, :, 1] = rng.uniform(0.1, 1.0, 16)
+    x[0, 3:9, 1] = -0.0
+    x[1, :, 2] = lo * rng.uniform(0.25, 0.99, 16)     # below the range
+    x[1, :, 3] = -lo * rng.uniform(0.25, 0.99, 16)
+    x[1, ::2, 4] = lo                                 # at its ends
+    x[1, 1::2, 4] = hi
+    x[2, 5, 5] = -0.0
+    if f == np.float32:
+        a, b = np.float32(2.0 ** -20), np.float32(2.0 ** 20)
+        dp[3, :4, 0] = a                              # at the ends
+        dp[3, 4:8, 0] = b
+        dp[3, 8:12, 0] = np.nextafter(a, np.float32(0))   # just beyond
+        dp[3, 12:, 0] = np.nextafter(b, np.float32(np.inf))
+        dp[4, :, 1] = np.nextafter(a, np.float32(0))
+    return x, dp, nq
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_minmax_prep_bitwise_at_the_inline_division_edges(dtype):
+    """K5's plain version == the JAX Pallas bound prep bit for bit on the
+    operands where the kernel's inline division leaves its fast path."""
+    x, dp, nq = _division_edges(dtype, 21)
+    jmn, jmx = pallas_dss.minmax_prep_pallas(jnp.asarray(x), jnp.asarray(dp),
+                                             nq, interpret=True)
+    tmn, tmx = tdf.minmax_prep(torch.from_numpy(x), torch.from_numpy(dp), nq)
+    _same_bits(tmn, jmn)
+    _same_bits(tmx, jmx)
+    assert np.signbit(tmn.numpy()[0, 1]) and tmn.numpy()[0, 1] == 0
+
+
+def test_minmax_prep_keeps_the_first_of_tied_zeros():
+    """Where +0 and -0 tie for a column's min or max, the plain version
+    keeps the first point's zero, as the kernel's strict comparisons in
+    point order do (csrc/dss.cu minmax_kernel).  The JAX kernel orders -0
+    below +0 instead: its min is -0 and its max +0 on such ties (sign of a
+    zero bound only)."""
+    x = np.ones((1, 16, 4))
+    x[0, :, 0] = 0.0
+    x[0, 5, 0] = -0.0            # +0 first
+    x[0, :, 1] = -0.0
+    x[0, 7, 1] = 0.0             # -0 first
+    x[0, :, 2] = 1.0
+    x[0, 3, 2], x[0, 9, 2] = 0.0, -0.0     # the min ties, +0 first
+    x[0, :, 3] = -1.0
+    x[0, 3, 3], x[0, 9, 3] = -0.0, 0.0     # the max ties, -0 first
+    dp = np.ones((1, 16, 4))
+    tmn, tmx = (a.numpy()[0] for a in tdf.minmax_prep(
+        torch.from_numpy(x), torch.from_numpy(dp), 1))
+    np.testing.assert_array_equal(np.signbit(tmn), [False, True, False,
+                                                    True])
+    np.testing.assert_array_equal(np.signbit(tmx), [False, True, False,
+                                                    True])
+    jmn, jmx = (np.asarray(a)[0] for a in pallas_dss.minmax_prep_pallas(
+        jnp.asarray(x), jnp.asarray(dp), 1, interpret=True))
+    np.testing.assert_array_equal(np.signbit(jmn), [True, True, True, True])
+    np.testing.assert_array_equal(np.signbit(jmx), [False, False, False,
+                                                    False])

@@ -629,3 +629,152 @@ def test_sharded_face_subcycle_on_card(cuda, dtype):
     assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0])
     single = make_subcycle_fn(m)(initial_qdp(m), 0)[0]
     _close(outs[0], single)
+
+
+def _k10_edge_rows(E, q, k, dtype, seed):
+    """limiter_optim_stage's arguments (ptens [E,q,k,16], spheremp [E,16],
+    dp_star [E,k,16], qmin, qmax) from a numpy seed, with the edges of
+    K10's inline division and iteration: rows of +0 and -0 tracer mass, of
+    mass below and at the range's ends (2^-100 f32, 2^-400 f64), dp_star
+    rows at and just beyond 2^-20 and 2^20 (f32), an element whose weights
+    sum to <= 0, a row that converges at once and one that needs all 15
+    passes (tests/test_torch_limiter.py holds the plain version to the JAX
+    limiter on such rows)."""
+    f = np.float32 if dtype == "f32" else np.float64
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (E, q, k, 16))
+    dp = rng.uniform(0.5, 2.0, (E, k, 16))
+    sp = rng.uniform(0.1, 1.0, (E, 16))
+    qmin = np.quantile(x, 0.2, axis=-1)
+    qmax = np.quantile(x, 0.8, axis=-1)
+    qmin[::3] = 0.9                                   # infeasible: relaxed
+    ptens = (x * dp[:, None]).astype(f)
+    dp, sp = dp.astype(f), sp.astype(f)
+    lo = 2.0 ** (-100 if dtype == "f32" else -400)
+    hi = 2.0 ** (100 if dtype == "f32" else 400)
+    rows = ptens.reshape(-1, 16)
+    n = rows.shape[0]
+    rows[0 % n] = 0.0
+    rows[1 % n, ::3] = -0.0
+    rows[2 % n] = -0.0
+    rows[3 % n] = lo * rng.uniform(0.25, 0.99, 16)
+    rows[4 % n, ::2] = lo
+    rows[5 % n, 1::2] = hi * rng.uniform(0.5, 1.0, 8)
+    if dtype == "f32":
+        dr = dp.reshape(-1, 16)
+        a, b = np.float32(2.0 ** -20), np.float32(2.0 ** 20)
+        for i, w in enumerate((a, b, np.nextafter(a, np.float32(0)),
+                               np.nextafter(b, np.float32(np.inf)))):
+            dr[(6 + i) % dr.shape[0], :: 1 + i % 2] = w
+    if E > 2:
+        sp[1] = -sp[1]                                # weights sum < 0
+        # element 2, tracer 0, level 0: a row of one pass, level k-1 of
+        # 15 (tests/test_torch_limiter.py _long_row); the element's weights
+        # are the long row's
+        kk = np.arange(1, 16)
+        c = np.concatenate([[1.0], 0.45 ** kk])
+        sp[2] = c
+        dp[2] = 1.0
+        ptens[2, 0, 0] = rng.uniform(0.4, 0.6, 16)
+        qmin[2, 0, 0], qmax[2, 0, 0] = 0.3, 0.7
+        ptens[2, 0, k - 1] = np.concatenate(
+            [[1.0 + 3e-2 * c[1:].sum()], 1.0 - (kk * 3e-2 - 3e-2 * 0.45
+                                                / 0.55)])
+        qmin[2, 0, k - 1], qmax[2, 0, k - 1] = 0.0, 1.0
+    return ptens, sp, dp, qmin.astype(f), qmax.astype(f)
+
+
+# K10's edge cases (E, q, k): dp_star rows a block takes (16 at q = 4, 64
+# at q = 1) not dividing E*k; one tracer; one level; both; more tracers
+# than a block's 64 rows (one dp_star row a block, several passes)
+K10_CASES = {"E7_q4_k5": (7, 4, 5), "q1": (13, 1, 9), "k1": (11, 3, 1),
+             "q1_k1": (67, 1, 1), "q70": (3, 70, 2), "ne30_levels": (5, 4, 72)}
+
+
+@pytest.mark.parametrize("case", list(K10_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k10_edge_shapes_bitwise(cuda, dtype, case):
+    """K10 == its plain version bit for bit (-0 and +0 apart), through the
+    std stage's operands and through [N, 16] operands."""
+    E, q, k = K10_CASES[case]
+    f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    ptens, sp, dp, mn, mx = (torch.from_numpy(a).to(cuda, f) for a in
+                             _k10_edge_rows(E, q, k, dtype, E * q + k))
+    want = limiter.limiter_optim_stage(ptens, sp, dp, mn, mx, plain=True)
+    counters.reset()
+    got = limiter.limiter_optim_stage(ptens, sp, dp, mn, mx)
+    got += limiter.limiter_optim_iter_full(
+        ptens, sp[:, None, None].expand(ptens.shape).contiguous(), mn, mx,
+        dp[:, None].expand(ptens.shape).contiguous())
+    assert counters.snapshot()["limiter_optim"] == 2
+    for a, b in zip(got, want * 2):
+        assert torch.equal(_bits(a), _bits(b)), (
+            case, (a - b).abs().max().item())
+
+
+def _k5_edge_fields(E, nq, nk, dtype, seed):
+    """x [E,16,nq*nk], dp [E,16,nk] from a numpy seed, with the edges of
+    K5's inline division (tests/test_torch_dss_face.py
+    _division_edges): columns of +0, of -0 beside positive values, of
+    +0/-0 ties for the min and the max, of tracer mass below and at the
+    range's ends; in f32 dp at and just beyond 2^-20 and 2^20."""
+    f = np.float32 if dtype == "f32" else np.float64
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.5, 2.0, (E, 16, nq * nk)).astype(f)
+    dp = rng.uniform(0.5, 2.0, (E, 16, nk)).astype(f)
+    lo = 2.0 ** (-100 if dtype == "f32" else -400)
+    hi = 2.0 ** (100 if dtype == "f32" else 400)
+    cols = x.transpose(0, 2, 1).reshape(-1, 16)       # a view: columns
+    n = cols.shape[0]
+    cols[0 % n] = 0.0
+    cols[1 % n, 3:9] = -0.0
+    cols[2 % n] = -0.0
+    cols[2 % n, 7] = 0.0                              # -0 first
+    cols[3 % n, 3], cols[3 % n, 9] = 0.0, -0.0        # the min may tie
+    cols[4 % n] = lo * rng.uniform(0.25, 0.99, 16)
+    cols[5 % n, ::2] = lo
+    cols[5 % n, 1::2] = hi
+    if dtype == "f32":
+        a, b = np.float32(2.0 ** -20), np.float32(2.0 ** 20)
+        dp[-1, :4, 0] = a
+        dp[-1, 4:8, 0] = b
+        dp[-1, 8:12, 0] = np.nextafter(a, np.float32(0))
+        dp[-1, 12:, 0] = np.nextafter(b, np.float32(np.inf))
+    return x, dp
+
+
+# K5's edge cases (E, nq, nk, shard): lane counts that 2 does not divide
+# (one lane a thread) and that leave a pass partly idle; one level; the
+# NE30 lanes (35 x 72); more levels than 48 KB of dp records (the large
+# shared-memory launch); shard 3 of 8 of an NE4-sized field (a view into
+# it); a field that is not 16-byte aligned
+K5_CASES = {"L15": (5, 3, 5, None), "L28": (4, 7, 4, None),
+            "nk1": (6, 3, 1, None), "ne30_lanes": (3, 35, 72, None),
+            "nk900": (2, 2, 900, None), "shard": (96, 3, 16, 3),
+            "unaligned": (4, 3, 8, "unaligned")}
+
+
+@pytest.mark.parametrize("case", list(K5_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k5_edge_shapes_bitwise(cuda, dtype, case):
+    """K5 == its plain version bit for bit (-0 and +0 apart)."""
+    from transport_se_tpu_torch.ops import dss_face
+    E, nq, nk, kind = K5_CASES[case]
+    f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    xn, dpn = _k5_edge_fields(E, nq, nk, dtype, E + nq * nk)
+    x = torch.from_numpy(xn).to(cuda, f)
+    dp = torch.from_numpy(dpn).to(cuda, f)
+    if kind == "unaligned":
+        buf = torch.empty(x.numel() + 1, dtype=f, device=cuda)
+        x = buf[1:].view_as(x).copy_(x)
+        assert x.data_ptr() % 16
+    elif kind is not None:
+        eloc = E // 8
+        x, dp = (a[kind * eloc:(kind + 1) * eloc] for a in (x, dp))
+    want = dss_face.minmax_prep_plain(x, dp, nq)
+    counters.reset()
+    got = dss_face.minmax_prep(x, dp, nq)
+    assert counters.snapshot()["minmax_prep"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b)), (
+            case, (a - b).abs().max().item())

@@ -34,11 +34,11 @@ def _t(a):
     return torch.tensor(np.asarray(a))
 
 
-def _check_bounds(got, want, given):
+def _check_bounds(got, want, given, rtol=RELAXED_RTOL):
     """Unrelaxed bounds bitwise, relaxed ones to a few ulp."""
     kept = want == np.asarray(given)
     np.testing.assert_array_equal(got[kept], want[kept])
-    np.testing.assert_allclose(got, want, rtol=RELAXED_RTOL, atol=0)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=0)
 
 
 @pytest.mark.parametrize("n", [64, 2048, 3000])
@@ -182,7 +182,105 @@ def test_k10_builds_with_the_library_and_shares_k1_limiter_body():
     assert "limiter_optim_plain" in counters.COUNTS
     common = (CSRC / "common.cuh").read_text()
     assert "void limiter_iterate(" in common
+    # K1 passes a column's 16 points, K10 a quad lane's 4, whose sums
+    # row_sum16 completes over the quad: one body, in common.cuh alone
+    assert "void limiter_iterate(T (&x)[P]" in common
+    assert "row_sum16(r)" in common and "__shfl_xor_sync" in common
     for src in ("euler.cu", "limiter.cu"):
         text = (CSRC / src).read_text()
         assert "limiter_iterate(x, c, mn, mx," in text, src
-        assert "addmass" not in text, src
+        assert "addmass =" not in text and "wsum" not in text, src
+    assert "T x0[P], x[P], c[P]" in (CSRC / "limiter.cu").read_text()
+
+
+def _long_row():
+    """(x, c) of a row whose clip-and-redistribute needs all 15 passes
+    within the bounds [0, 1] (dpmass 1): the weights fall by r from point
+    to point, and each pass's overshoot, carried by the point it
+    saturates, is spread over the free points' weights and saturates the
+    next one.  At r = 0.45 each overshoot lies 18% below the add that
+    saturates the next point, so limiters that sum in other orders take
+    the same path (where that margin is a few ulp, one ulp decides which
+    point saturates and the unconverged results part)."""
+    a, r = 3e-2, 0.45
+    k = np.arange(1, 16)
+    c = np.concatenate([[1.0], r ** k])
+    x = np.concatenate([[1.0 + a * c[1:].sum()], 1.0 - (k * a - a * r /
+                                                        (1 - r))])
+    return x, c
+
+
+def _division_edges(dtype, seed):
+    """(ptens, sph, qmin, qmax, dp) [n, 16] rows with the inline division's
+    edge operands (csrc/common.cuh Bits): tracer mass +0, -0, below and at
+    the range's lower end (2^-100 f32, 2^-400 f64) and at its upper end;
+    in f32 layer widths at and just beyond 2^-20 and 2^20; and a row that
+    converges at once, one that needs all 15 passes and one whose weights
+    sum to <= 0."""
+    f = np.dtype(dtype)
+    rng = np.random.default_rng(seed)
+    ptens, sph, qmin, qmax, dp = (np.array(a, dtype=f) for a in
+                                  _random_problem(rng, 48))
+    lo = 2.0 ** (-100 if f == np.float32 else -400)
+    hi = 2.0 ** (100 if f == np.float32 else 400)
+    ptens[0] = 0.0
+    ptens[1, 2:9] = 0.0
+    ptens[2] = -0.0
+    ptens[3, ::3] = -0.0
+    ptens[4] = lo * rng.uniform(0.25, 0.99, 16)       # below the range
+    ptens[5, :8] = -lo * rng.uniform(0.25, 0.99, 8)
+    ptens[6, ::2] = lo                                # at its ends
+    ptens[7, 1::2] = hi * rng.uniform(0.5, 1.0, 8)
+    qmin[6:8], qmax[6:8] = 0.0, hi
+    if f == np.float32:
+        a, b = np.float32(2.0 ** -20), np.float32(2.0 ** 20)
+        for i, w in enumerate((a, b, np.nextafter(a, np.float32(0)),
+                               np.nextafter(b, np.float32(np.inf)))):
+            q = ptens[8 + i] / dp[8 + i]
+            dp[8 + i, :: 1 + i % 2] = w
+            ptens[8 + i] = (q * dp[8 + i]).astype(f)
+    x = rng.uniform(0.4, 0.6, 16)                     # converges at once
+    ptens[12], sph[12], dp[12] = x, 0.5, 1.0
+    qmin[12], qmax[12] = 0.3, 0.7
+    x, c = _long_row()
+    ptens[13], sph[13], dp[13], qmin[13], qmax[13] = x, c, 1.0, 0.0, 1.0
+    sph[14] = -sph[14]                                # sum of weights < 0
+    return ptens, sph, qmin, qmax, dp
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_plain_matches_jax_at_the_inline_division_edges(dtype):
+    """K10's plain version == the JAX Pallas limiter on the operands where
+    the kernel's inline division leaves its fast path, and on rows of 1
+    and 15 passes and of weights summing to <= 0.  f64: the limited
+    output to atol 1e-13 of the row's scale and the bounds split of
+    _check_bounds, as above; f32: the same split at f32's unit roundoff
+    (the rows' mass sums differ by a few ulp, and each of up to 15 passes
+    spreads a clip residual of that size)."""
+    f = np.dtype(dtype)
+    ptens, sph, qmin, qmax, dp = _division_edges(dtype, 31)
+    from transport_se_tpu_torch.k10_variants import passes
+    n = passes(tuple(_t(a) for a in (ptens[:, None, None], sph,
+                                     dp[:, None], qmin[:, None, None],
+                                     qmax[:, None, None])))
+    assert n[12].item() == 1 and n[13].item() == 15 and n[14].item() == 0
+    want = [np.asarray(a) for a in limiter_optim_iter_full_pallas(
+        *(jnp.asarray(a) for a in (ptens, sph, qmin, qmax, dp)),
+        interpret=True)]
+    got = [a.numpy() for a in tlim.limiter_optim_iter_full(
+        *(_t(a) for a in (ptens, sph, qmin, qmax, dp)))]
+    assert all(g.dtype == f for g in got)
+    eps = np.finfo(f).eps
+    scale = np.abs(want[0]).max(axis=1, keepdims=True)
+    atol = 1e-13 if f == np.float64 else 256 * eps
+    err = np.abs(got[0] - want[0])
+    assert (err <= atol * scale).all(), (err / scale).max(axis=1)
+    rtol = RELAXED_RTOL if f == np.float64 else 8 * eps
+    _check_bounds(got[1], want[1], qmin, rtol)
+    _check_bounds(got[2], want[2], qmax, rtol)
+    # the row of weights summing to <= 0 passes ptens through, bitwise
+    assert got[0][14].tobytes() == ptens[14].tobytes()
+    # a row of -0 tracer mass relaxes its lower bound to -0 and stays -0
+    # (the JAX kernel's 0/1 blends, conv*xcl + (1 - conv)*xred, give +0
+    # there: equal as numbers, which the tolerance above holds)
+    assert np.signbit(got[0][2]).all() and np.signbit(got[1][2])

@@ -68,6 +68,11 @@ ENTRIES = {
     # ptens sph dpmass minp maxp | out minp_o maxp_o | n sph_rep sph_inner
     # dp_rep dp_inner | tol | stream
     "tse_limiter_optim": [P] * 8 + [LL] * 5 + [D, P],
+    # out[3]: K10's lanes a row, threads, blocks/SM
+    "tse_limiter_config": [P],
+    # L nk | out[5]: K5's lanes a thread, threads, lane groups an element,
+    # shared bytes per block, blocks/SM
+    "tse_minmax_config": [I, I, P],
 }
 
 _lock = threading.Lock()

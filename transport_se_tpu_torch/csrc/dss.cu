@@ -13,8 +13,9 @@
 // Bound on the H100: device-memory bytes.  All three kernels do a few
 // operations per byte.  K4 reads the field once and writes it once (plus
 // avg read, or the Laplacian written, in its fused variants: about 2.6 GB
-// per launch at NE30 f32, ~0.8 ms); K5 reads it once (~0.26 ms); K6 moves
-// two [E, L] bound arrays in and out (~0.07 ms).
+// per launch at NE30 f32, ~0.8 ms); K5 reads it and dp once and writes
+// two [E, L] bounds (~0.30 ms); K6 moves two [E, L] bound arrays in and
+// out (~0.07 ms).
 //
 // Design, against the TPU form: the Pallas kernel streams blocks of whole
 // element rows of one face through VMEM, takes the in-face partners as
@@ -28,6 +29,15 @@
 // adjacent lanes, so every partner read of a warp is one coalesced row
 // segment; the partner rows are other blocks' own rows and mostly hit L2.
 // No row blocks, ghost strips, lane chunks or padding.
+//
+// K5 takes K7's min/max form (band.cu).  Its first form, a thread per
+// column with 16 IEEE divisions and 16 reads of dp[e, p, lane % nk] (each
+// shared by the column's nq tracers), took 0.68-0.72 ms f32 / 1.03-1.11
+// f64 at NE30 on an H100, 42% of its bound.
+// Now a block takes an element and a group of its lanes; a prologue puts
+// dp and its reciprocal into shared memory once per element and group,
+// each thread owns 2 adjacent lanes in vector accesses, and q = x/dp runs
+// inline (see minmax_kernel).
 //
 // K4 adds the terms of each slot in the DSS_STORE order of the Pallas
 // kernel, (x + (S_x + d)) + S_y on the i = 0, 3 planes and x + S_y on the
@@ -123,24 +133,101 @@ dss_face_kernel(const T* __restrict__ x, const int64_t* __restrict__ part,
   }
 }
 
+// K5's launch shape, as K7's min/max variant takes it: lanes a thread
+// (vector accesses where L, nk and the pointers allow, else one), threads
+// a block, lane passes a block (one dp prologue each).  Measured at NE30
+// with k5_variants (PERF.md): 2 lanes a thread beat 4 in f32 and f64.
+constexpr int kMinmaxVec = 2;
+constexpr int kMinmaxThreads = 128;
+constexpr int kMinmaxPasses = 4;
+// measuring switches (k5_variants): q = x/dp by the IEEE division
+// throughout; the bounds stored with the evict-first hint (st.global.cs)
+constexpr bool kMinmaxIeeeDivide = false;
+constexpr bool kMinmaxStreamStores = true;
+constexpr int kSmemMax = 227 * 1024;
+
+// dp and its reciprocal at one (point, level)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct DpRecip {
+  T d, y;
+};
+
+// A block takes one element and a group of its lanes; a prologue puts the
+// element's dp [16, nk] and its reciprocals into shared memory, then each
+// thread owns V adjacent lanes (levels lev..lev+V-1 of one tracer: V
+// divides nk and the lane) and walks the group's lanes in passes of
+// threads*V.  q = x/dp runs inline (tse::div_by with the prologue's
+// reciprocal), which gives the IEEE quotient while x lies in common.cuh's
+// range (or is +0) and dp does; a thread whose x leaves it, or a block
+// whose dp does, divides its columns with IEEE divisions.  The min and the
+// max run over p = 0..15 in point order with strict comparisons, so of
+// equal values (-0 and +0) the first point's is kept.
+template <typename T, int V>
+__global__ void __launch_bounds__(kMinmaxThreads)
 minmax_kernel(const T* __restrict__ x, const T* __restrict__ dp,
-              T* __restrict__ qmin, T* __restrict__ qmax, int L, int nk) {
-  const int64_t e = blockIdx.x;
-  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const int64_t base = e * 16 * L + lane;
-  const int64_t lbase = e * 16 * nk + lane % nk;
-  T mn = x[base] / dp[lbase], mx = mn;
-#pragma unroll
-  for (int p = 1; p < 16; ++p) {
-    const T q = x[base + int64_t(p) * L] / dp[lbase + p * nk];
-    mn = q < mn ? q : mn;
-    mx = q > mx ? q : mx;
+              T* __restrict__ qmin, T* __restrict__ qmax, int L, int nk,
+              int groups) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  DpRecip<T>* sQ = reinterpret_cast<DpRecip<T>*>(smem);  // [16][nk]
+  const int64_t e = blockIdx.x / groups;
+  const int g = int(blockIdx.x - e * groups);
+  const int tid = threadIdx.x;
+  const int bd = blockDim.x;
+
+  const T* dpe = dp + e * 16 * nk;
+  bool slow_dp = false;
+  for (int i = tid; i < 16 * nk; i += bd) {
+    const T d = dpe[i];
+    slow_dp |= tse::outside(d, tse::Bits<T>::d_lo, tse::Bits<T>::d_hi);
+    sQ[i] = {d, tse::recip(d)};
   }
-  qmin[e * L + lane] = mn;
-  qmax[e * L + lane] = mx;
+  slow_dp = __syncthreads_or(slow_dp) != 0 || kMinmaxIeeeDivide;
+
+  const T* __restrict__ xe = x + e * 16 * L;
+  for (int lane = (g * bd + tid) * V; lane < L; lane += groups * bd * V) {
+    T q[16][V];
+#pragma unroll
+    for (int p = 0; p < 16; ++p)
+      tse::load_v<V>(xe + int64_t(p) * L + lane, q[p]);
+    const int lev = lane % nk;
+    bool slow = slow_dp;
+#pragma unroll
+    for (int p = 0; p < 16; ++p)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        slow |= tse::outside_abs(q[p][v], tse::Bits<T>::q_lo,
+                                 tse::Bits<T>::q_hi);
+    if (!slow) {
+#pragma unroll
+      for (int p = 0; p < 16; ++p)
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const DpRecip<T> a = sQ[p * nk + lev + v];
+          q[p][v] = tse::div_by(q[p][v], a.d, a.y);
+        }
+    } else {
+#pragma unroll
+      for (int p = 0; p < 16; ++p)
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          q[p][v] = q[p][v] / sQ[p * nk + lev + v].d;
+    }
+    T mn[V], mx[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      mn[v] = q[0][v];
+      mx[v] = q[0][v];
+    }
+#pragma unroll
+    for (int p = 1; p < 16; ++p)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        mn[v] = q[p][v] < mn[v] ? q[p][v] : mn[v];
+        mx[v] = q[p][v] > mx[v] ? q[p][v] : mx[v];
+      }
+    tse::store_v<kMinmaxStreamStores, V>(qmin + e * L + lane, mn);
+    tse::store_v<kMinmaxStreamStores, V>(qmax + e * L + lane, mx);
+  }
 }
 
 template <typename T>
@@ -201,14 +288,61 @@ int launch_dss_face(const void* x, const void* part, const void* rsp,
   return int(cudaGetLastError());
 }
 
+// Launches K5 at lane width V; with config, fills config[5] = {lanes a
+// thread, threads a block, lane groups an element, dynamic shared bytes a
+// block, resident blocks per SM} instead
+template <typename T, int V>
+int run_minmax(const T* x, const T* dp, T* qmin, T* qmax, int E, int L,
+               int nk, cudaStream_t st, int* config) {
+  constexpr int threads = kMinmaxThreads;
+  auto kernel = minmax_kernel<T, V>;
+  const size_t smem = size_t(16) * nk * sizeof(DpRecip<T>);
+  if (smem > size_t(kSmemMax)) return int(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+  }
+  const int chunks = (L + threads * V - 1) / (threads * V);
+  const int groups = (chunks + kMinmaxPasses - 1) / kMinmaxPasses;
+  if (config != nullptr) {
+    int resident = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, kernel, threads, smem);
+    if (err != cudaSuccess) return int(err);
+    config[0] = V;
+    config[1] = threads;
+    config[2] = groups;
+    config[3] = int(smem);
+    config[4] = resident;
+    return 0;
+  }
+  const long long blocks = (long long)E * groups;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  kernel<<<unsigned(blocks), threads, smem, st>>>(x, dp, qmin, qmax, L, nk,
+                                                  groups);
+  return int(cudaGetLastError());
+}
+
+template <int V, typename T>
+bool aligned(const T* p) {
+  return reinterpret_cast<uintptr_t>(p) % (V * sizeof(T)) == 0;
+}
+
+// The vector width where L, nk and the pointers allow it, else one lane a
+// thread (null pointers: the launch shape for aligned fields)
 template <typename T>
 int launch_minmax(const void* x, const void* dp, void* qmin, void* qmax,
-                  int E, int L, int nk, void* stream) {
+                  int E, int L, int nk, void* stream, int* config = nullptr) {
   if (E <= 0 || L <= 0 || nk <= 0) return int(cudaErrorInvalidValue);
-  const dim3 grid(E, (L + kThreads - 1) / kThreads);
-  minmax_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      (const T*)x, (const T*)dp, (T*)qmin, (T*)qmax, L, nk);
-  return int(cudaGetLastError());
+  constexpr int V = kMinmaxVec;
+  const T *xt = (const T*)x, *dpt = (const T*)dp;
+  T *mn = (T*)qmin, *mx = (T*)qmax;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (V > 1 && L % V == 0 && nk % V == 0 && aligned<V>(xt) &&
+      aligned<V>(mn) && aligned<V>(mx))
+    return run_minmax<T, V>(xt, dpt, mn, mx, E, L, nk, st, config);
+  return run_minmax<T, 1>(xt, dpt, mn, mx, E, L, nk, st, config);
 }
 
 template <typename T>
@@ -238,6 +372,11 @@ int launch_nbr_minmax(const void* qmin, const void* qmax, const void* nbr,
                                           void* qmin, void* qmax, int E,     \
                                           int L, int nk, void* stream) {     \
     return launch_minmax<T>(x, dp, qmin, qmax, E, L, nk, stream);            \
+  }                                                                          \
+  /* out[5]: K5's launch shape for aligned fields */                         \
+  extern "C" int tse_minmax_config_##SUFFIX(int L, int nk, int* out) {       \
+    return launch_minmax<T>(nullptr, nullptr, nullptr, nullptr, 1, L, nk,    \
+                            nullptr, out);                                   \
   }                                                                          \
   extern "C" int tse_neighbor_minmax_##SUFFIX(                               \
       const void* qmin, const void* qmax, const void* nbr, void* gmin,       \

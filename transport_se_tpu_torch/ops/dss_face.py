@@ -29,6 +29,7 @@ a CUDA tensor launches the kernel, anything else raises.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -446,6 +447,19 @@ def minmax_prep(x, dp, nq):
     _build.check(code, "minmax_prep")
     bump("minmax_prep")
     return qmin, qmax
+
+
+def kernel_config(L, nk, dtype):
+    """K5's launch shape on L lanes of nk levels for 16-byte-aligned
+    fields, on the current card: lanes per thread, threads per block, lane
+    groups per element, dynamic shared-memory bytes per block and resident
+    blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs
+    a CUDA device."""
+    buf = (ctypes.c_int * 5)()
+    fn = _build.entry("tse_minmax_config", _DTYPES[dtype])
+    _build.check(fn(int(L), int(nk), buf), "minmax_config")
+    return dict(zip(("vec", "threads", "groups", "smem_bytes",
+                     "blocks_per_sm"), buf))
 
 
 def neighbor_minmax(qmin, qmax, ft: FaceTables):

@@ -38,6 +38,8 @@ launches the kernel, anything else raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
@@ -138,6 +140,17 @@ def limiter_optim_stage(ptens, spheremp, dp_star, minp, maxp, plain=False):
         return limiter_optim_iter_full_plain(
             ptens, spheremp[:, None, None], minp, maxp, dp_star[:, None])
     return _launch(ptens, spheremp, dp_star, minp, maxp, q * k, 1, q, k)
+
+
+def kernel_config(dtype):
+    """The kernel's launch shape on the current card: lanes per row,
+    threads per block and resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs a CUDA
+    device."""
+    buf = (ctypes.c_int * 3)()
+    fn = _build.entry("tse_limiter_config", _DTYPES[dtype])
+    _build.check(fn(buf), "limiter_config")
+    return dict(zip(("row_lanes", "threads", "blocks_per_sm"), buf))
 
 
 def limiter2d_minmax(qdp, dp, spheremp, qmin, qmax):
