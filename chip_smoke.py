@@ -14,7 +14,8 @@ the result lines):
      caps 1, 2, 4 and 15; K3 bitwise at alg 0 and 2, with its registers,
      shared memory and resident blocks per SM; K5 bitwise on the sphere
      and on every shard of S = 8, with its registers and spills, launch
-     shape and resident blocks per SM
+     shape and resident blocks per SM; K6 bitwise with its registers,
+     launch shape and resident blocks per SM
   4. the T-layout perf path, run_simulation(perf_config(30, f32,
      use_pallas=True)) in the production face DSS mode for 6 steps, then
      the same in gather mode (the path that runs K2): launch counts,
@@ -55,6 +56,12 @@ the result lines):
      per shard, min_dp, tracer mass, time per subcycle
  15. the std-layout sharded subcycle, NE8 f64 DCMIP 1-1, 8 shards against
      one device
+ 16. the f32 verification of the production path: python -m
+     transport_se_tpu_torch.verify (in-process) on NE8 DCMIP 1-1, 12 days,
+     f32 --pallas (the T path through K1 and K3-K6), its L1, L2 and Linf
+     within 1e-2 relative of the published f64 norms; then the
+     conservation gate (python -m transport_se_tpu_torch.audit_drift) on
+     the NE8 perf configuration over 12 days, drift below 2e-4
 Then one JSON line of per-kernel results (the launches of K2 from the
 gather run of phase 4, of K10 from the NE30 CLI run of phase 10, of K7
 from the S = 8 run of phase 14, all others from the face run of phase 4;
@@ -79,6 +86,7 @@ NE = 30
 N_TIMED = 5          # timed repetitions (median) per kernel and for phase 7
 SWEEP_ITERS = (1, 2, 4, 15)   # K1's limiter iteration caps timed in phase 3
 N_NAMES = 10         # kernel names printed by phase 7's profile
+BURST = 20           # launches timed back to back (K6 in phase 3)
 # kernel vs plain, max |kernel - plain| / max |plain|.  Both sides do the
 # same operations in the same order (csrc/*.cu is built with --fmad=false),
 # so the expected difference is 0.  f32: 1e-5 leaves room for a one-ulp
@@ -149,11 +157,12 @@ def sharded_counts(S, nsub, overlap):
 # The std-layout step launches K10 once per stage: 3 per tracer step.
 K10_PER_STEP = 3
 
-# The published f64 verification runs (the reference README:94-96, 127-129;
-# BASELINE.md): (test, ne, tstep, nu_q, days, published, held) ->
-# `published` the norms as printed, `held` the six-decimal digits the port
-# must give: the JAX package's own f64 result for the run, where that
-# differs from the published one.  It differs for NE8 DCMIP 1-2 only:
+# The published f64 verification runs: (test, ne, tstep, nu_q, days, held)
+# -> the norms as published are verify.PUBLISHED's (the reference
+# README:94-96, 127-129; BASELINE.md); `held` replaces those of them that
+# the port must give otherwise: the JAX package's own f64 result for the
+# run, where that differs from the published one.  It differs for NE8
+# DCMIP 1-2 only:
 # `scripts/verify.py --test dcmip1-2 --ne 8 --platform cpu --dtype f64`
 # gives L1 0.307660 and q_min -1.053362e-12 against the published 0.307665
 # and -9.385639e-06 (L2, Linf and q_max as published).  There the Hadley
@@ -165,20 +174,21 @@ K10_PER_STEP = 3
 # the JAX package's CLI on this run on the CPU.  q_min is checked to 1e-3
 # relative where it is a real undershoot (NE30 DCMIP 1-2), to roundoff
 # scale (|q_min| < QMIN_ROUNDOFF, held q_min 0.0) where the JAX package's
-# is, and only printed for NE8 DCMIP 1-1.
+# is, and only printed for NE8 DCMIP 1-1 (held q_min None).
 QMIN_ROUNDOFF = 1e-10
-PUBLISHED_12_NE8 = dict(l1=0.307665, l2=0.622099, linf=0.839133,
-                        q_max=0.813105, q_min=-9.385639e-06)
+NORM_KEYS = ("l1", "l2", "linf", "q_max", "q_min")
 CLI_RUNS = (
-    ("dcmip1-2", 8, 400.0, 6e16, 1, PUBLISHED_12_NE8,
-     dict(PUBLISHED_12_NE8, l1=0.307660, q_min=0.0)),
-    ("dcmip1-2", 30, 300.0, 1e15, 1,
-     dict(l1=0.121783, l2=0.361005, linf=1.092784, q_max=0.836177,
-          q_min=-3.671997e-05), None),
-    ("dcmip1-1", 8, 400.0, 6e16, 12,
-     dict(l1=0.578151, l2=0.865526, linf=0.883168, q_max=0.187204,
-          q_min=None), None),
+    ("dcmip1-2", 8, 400.0, 6e16, 1, dict(l1=0.307660, q_min=0.0)),
+    ("dcmip1-2", 30, 300.0, 1e15, 1, {}),
+    ("dcmip1-1", 8, 400.0, 6e16, 12, dict(q_min=None)),
 )
+# phase 16: the f32 T path's norms against the published f64 norms of
+# NE8 DCMIP 1-1, relative.  VERIFICATION.md holds the f32 path to 2-3
+# digits of them (the JAX package's f32 run on its TPU came within 2e-3);
+# 1e-2 catches a fault of the path, not its f32 roundoff
+VERIFY_TOL = 1e-2
+VERIFY_KERNELS = ("fused_advect_limit", "remap_q_ppm_t", "dss_face",
+                  "minmax_prep", "neighbor_minmax")
 # the relative tracer-mass drift of a run (the printstate masses); the
 # JAX package's CPU runs show 2e-12 (NE8 1-2) and 5e-13 (NE30 1-2)
 DRIFT_TOL = 1e-11
@@ -369,7 +379,8 @@ def rel_err(torch, got, want):
 def port_modules():
     """The port's modules this script drives, imported (the script's one
     import block of the port)."""
-    from transport_se_tpu_torch import _build, counters, k10_variants
+    from transport_se_tpu_torch import (_build, audit_drift, counters,
+                                        k10_variants, verify)
     from transport_se_tpu_torch.config import (dcmip11_ne8, dcmip11_ne30,
                                                dcmip12_ne30, perf_config)
     from transport_se_tpu_torch.model import core, driver, wind_basis
@@ -378,7 +389,8 @@ def port_modules():
                                             remap)
     from transport_se_tpu_torch.parallel import (comm, face_sharded, halo,
                                                  sharded)
-    return dict(_build=_build, counters=counters, k10_variants=k10_variants,
+    return dict(_build=_build, audit_drift=audit_drift, counters=counters,
+                k10_variants=k10_variants, verify=verify,
                 dcmip11_ne8=dcmip11_ne8,
                 dcmip11_ne30=dcmip11_ne30, dcmip12_ne30=dcmip12_ne30,
                 perf_config=perf_config, core=core, driver=driver,
@@ -603,6 +615,24 @@ def main():
         hold("K6", lambda: tb.neighbor_minmax(bmn, bmx),
              lambda: tb.neighbor_minmax(bmn, bmx, plain=True),
              "neighbor_minmax", 4 * EL * es + E * 9 * 8, EL * 16)
+        # K6 bit for bit (-0 included), with its launch shape
+        check(all(torch.equal(bits(torch, a), bits(torch, b)) for a, b in
+                  zip(tb.neighbor_minmax(bmn, bmx),
+                      tb.neighbor_minmax(bmn, bmx, plain=True))),
+              f"{dtype} K6 is not bitwise equal to its plain version")
+        shape = mods["dss_face"].nbr_kernel_config(E, nq * nk, Qt.dtype)
+        regs = [u for u in ptxas_usage(_build.BUILD_DIR / "build.log")
+                if u.startswith(f"nbr_minmax_kernel<{dtype}")]
+        regs = "; ".join(regs) or "ptxas report not found"
+        # a K6 launch takes about 0.1 ms, so one launch between two events
+        # also times the host's launch path: its time over a burst
+        burst = timed(torch, lambda: [tb.neighbor_minmax(bmn, bmx)
+                                      for _ in range(BURST)]) / BURST
+        line.append(f"K6 bitwise; {burst:.4f} ms a launch over {BURST} "
+                    f"back to back; {regs}; {shape['vec']} lanes a thread, "
+                    f"{shape['threads']} threads a block, {shape['blocks']} "
+                    f"blocks, {shape['smem_bytes']} B shared a block, "
+                    f"{shape['blocks_per_sm']} blocks/SM")
         # one PyTorch call of K4's scale variant: a sparse product with the
         # rspheremp-scaled assembly matrix (timed, used nowhere in the port)
         A = dss_matrix(torch, tb.face.part, rsp16)
@@ -940,8 +970,10 @@ def main():
                + os.environ.get("PYTHONPATH", ""))
     k10_launches = None
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
-        for test, ne, tstep, nu_q, days, pub, held in CLI_RUNS:
-            held = held or pub
+        for test, ne, tstep, nu_q, days, held in CLI_RUNS:
+            pub = dict(zip(NORM_KEYS, mods["verify"].PUBLISHED[(test, ne)]))
+            by_jax = any(k in held for k in NORM_KEYS[:4])
+            held = dict(pub, **held)
             d = Path(tmp) / f"{test}_ne{ne}"
             d.mkdir()
             (d / "run.nl").write_text(namelist(test, ne, tstep, nu_q, days))
@@ -996,8 +1028,8 @@ def main():
                 f"q_max={pub['q_max']:.6f}"
                 + (f" q_min={pub['q_min']:.6e}" if pub["q_min"] else "")
                 + f" ({len(same)} of 4 published to six decimals; held to "
-                + ("the published digits" if held is pub
-                   else "the JAX package's digits")
+                + ("the JAX package's digits" if by_jax
+                   else "the published digits")
                 + f"); max relative mass drift {drift:.3e}; launches "
                 f"{launched}; run wall {run_wall:.2f} s, process wall "
                 f"{wall:.2f} s")
@@ -1342,6 +1374,42 @@ def main():
         f"subcycle (bound 1e-13 x {scale:.3e}); min_dp {float(md15):.6g}; "
         "launches " + ", ".join(f"{k} {v}" for k, v in c15.items() if v))
     del m15, runner, states, got, ref
+
+    # ---- 16. the f32 verification of the production path -----------------
+    with contextlib.redirect_stdout(io.StringIO()):
+        v = mods["verify"].main(["--test", "dcmip1-1", "--ne", "8",
+                                 "--dtype", "f32", "--pallas"])
+    nrm, pub, la = v["norms"], v["published"], v["launches"]
+    rel = [abs(a - b) / abs(b)
+           for a, b in zip((nrm.l1, nrm.l2, nrm.linf), pub[:3])]
+    check(all(la.get(k, 0) > 0 for k in VERIFY_KERNELS)
+          and not la.get("laplace_wk_t") and not la.get("limiter_optim")
+          and not any(k.endswith("_plain") for k in la),
+          f"verify NE8 f32: launches {la}, want {VERIFY_KERNELS} and no "
+          "K2, K10 or plain version")
+    check(v["config"].use_pallas and v["config"].dss_mode == "face"
+          and all(md > 0 for md in v["min_dp"]),
+          f"verify NE8 f32: {v['config']}, min_dp {min(v['min_dp'])}")
+    check(max(rel) <= VERIFY_TOL, f"verify NE8 f32: L1/L2/Linf "
+          f"{nrm.l1:.6f}/{nrm.l2:.6f}/{nrm.linf:.6f}, relative "
+          f"{max(rel):.3e} from the published {pub[:3]} > {VERIFY_TOL}")
+    say(f"phase 16 verify NE8 DCMIP 1-1 f32 --pallas, {v['steps']} steps "
+        f"({v['subcycles']} subcycles): {nrm}; published L1/L2/Linf "
+        f"{pub[0]:.6f}/{pub[1]:.6f}/{pub[2]:.6f} q_max {pub[3]:.6f}, "
+        "relative " + "/".join(f"{r:.2e}" for r in rel)
+        + f" (tol {VERIFY_TOL:.0e}); max relative mass drift "
+        f"{v['drift']:.3e}; launches " + ", ".join(
+            f"{k} {n}" for k, n in la.items())
+        + f"; run wall {v['wall']:.2f} s on {card}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        a = mods["audit_drift"].main(["--ne", "8", "--days", "12"])
+    check(a["ok"], f"audit_drift NE8: drift {a['max']:.3e} >= "
+          f"{mods['audit_drift'].GATE:.0e}")
+    say(f"phase 16 audit_drift NE8 perf config f32 (35 tracers, limiter cap "
+        f"{a['cap']}), {a['subcycles']} subcycles = 12 days: per-tracer "
+        f"relative mass drift max {a['max']:.3e}, median "
+        f"{a['median']:.3e} (gate {mods['audit_drift'].GATE:.0e}); min_dp "
+        f"{a['min_dp']:.6g}; wall {a['wall']:.2f} s")
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **results[k])

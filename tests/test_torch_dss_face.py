@@ -305,3 +305,73 @@ def test_minmax_prep_keeps_the_first_of_tied_zeros():
     np.testing.assert_array_equal(np.signbit(jmn), [True, True, True, True])
     np.testing.assert_array_equal(np.signbit(jmx), [False, False, False,
                                                     False])
+
+
+def _k6_bounds(E, L, dtype, seed):
+    """qmin, qmax [E, L] of dtype: lanes of values >= 0 and of values <= 0
+    (so that +0 and -0 tie for many minima and maxima), +0 and -0 and
+    +-inf scattered over the rest, and the extremes of the last lane at
+    the cube-vertex elements of face 0."""
+    rng = np.random.default_rng(seed)
+    ne = int(round((E / 6) ** 0.5))
+    out = []
+    for sign in (1.0, -1.0):
+        a = rng.standard_normal((E, L))
+        a[:, 0::3] = sign * np.abs(a[:, 0::3])
+        a[:, 1::3] = -sign * np.abs(a[:, 1::3])
+        u = rng.random((E, L))
+        a[u < 0.3] = 0.0
+        a[(u >= 0.3) & (u < 0.6)] = -0.0
+        a[(u >= 0.6) & (u < 0.62)] = np.inf
+        a[(u >= 0.62) & (u < 0.64)] = -np.inf
+        for e in (0, ne - 1, ne * ne - ne, ne * ne - 1):
+            a[e, -1] = -sign * 1e30
+        out.append(a.astype(dtype))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("L", [5, 130])
+def test_neighbor_minmax_bitwise_with_signed_zeros(grids, dtype, L):
+    """K6's plain version == the JAX Pallas kernel and the JAX shifted-copy
+    form bit for bit, -0 and +0 apart: all three order -0 below +0 (the
+    plain version by its integer keys, JAX's jnp.minimum/maximum by
+    IEEE 754-2019), whatever the order of the reduction.  Lane counts that
+    4 does not divide, and one beyond the Pallas kernel's 128-lane
+    padding.  The same as the direct definition: the keys' min and max
+    over each element's row of the [E, 9] neighbor table."""
+    g, _, jf, _, tf, _ = grids
+    mn, mx = _k6_bounds(g.nelem, L, dtype, g.ne * 100 + L)
+    tgn, tgx = tdf.neighbor_minmax(torch.from_numpy(mn),
+                                   torch.from_numpy(mx), tf.face)
+    for want in (pallas_dss.neighbor_minmax_pallas(
+                     jnp.asarray(mn), jnp.asarray(mx), jf.face,
+                     interpret=True),
+                 jdf.neighbor_minmax_face(jnp.asarray(mn), jnp.asarray(mx),
+                                          jf.face)):
+        _same_bits(tgn, want[0])
+        _same_bits(tgx, want[1])
+    nbr = tf.face.nbr
+    for got, q, op in ((tgn, mn, torch.amin), (tgx, mx, torch.amax)):
+        key = op(tdf._ordered(torch.from_numpy(q))[nbr], dim=1)
+        _same_bits(got, tdf._ordered(key).view(got.dtype))
+    # tied zeros resolved: -0 minima and +0 maxima
+    assert torch.signbit(tgn[tgn == 0]).any()
+    assert (~torch.signbit(tgx[tgx == 0])).any()
+
+
+def test_ordered_keys():
+    """_ordered sorts as the values with -0 below +0 and is its own
+    inverse."""
+    for f in (np.float32, np.float64):
+        v = np.array([np.inf, 1.5, 0.0, -0.0, -1e-30, -np.inf, 2.0 ** -149
+                      if f == np.float32 else 5e-324, -2.5], f)
+        k = tdf._ordered(torch.from_numpy(v))
+        order = np.argsort(k.numpy(), kind="stable")
+        assert [str(x) for x in v[order]] == [
+            "-inf", "-2.5", "-1e-30", "-0.0", "0.0",
+            str(v[6]), "1.5", "inf"]
+        np.testing.assert_array_equal(
+            tdf._ordered(k).view(v.dtype.name == "float32" and torch.float32
+                                 or torch.float64).numpy().view(
+                k.numpy().dtype), v.view(k.numpy().dtype))

@@ -6,11 +6,12 @@ GPU machine it runs without the JAX package's test configuration:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
-
-import dataclasses
 
 from transport_se_tpu_torch import counters
 from transport_se_tpu_torch.config import Config
@@ -778,3 +779,76 @@ def test_k5_edge_shapes_bitwise(cuda, dtype, case):
     for a, b in zip(got, want):
         assert torch.equal(_bits(a), _bits(b)), (
             case, (a - b).abs().max().item())
+
+
+@functools.cache
+def _face_tables(ne):
+    """The face tables of the raster grid of ne on the card."""
+    from transport_se_tpu_torch.grid.cubesphere import build_grid
+    from transport_se_tpu_torch.ops.dss_face import FaceTables
+    g = build_grid(ne, order="raster")
+    return FaceTables.from_grid(g.part_idx, g.part_mask, ne,
+                                torch.device("cuda", 0))
+
+
+def _k6_edge_bounds(E, L, dtype, seed):
+    """qmin, qmax [E, L] from a numpy seed: lanes of values >= 0 and of
+    values <= 0, so that +0 and -0 tie for many minima and maxima, +0 and
+    -0 scattered over the rest, a few +-inf, and the extremes of one lane
+    at each cube-vertex element of face 0 (elements 0, ne-1, ne^2-ne,
+    ne^2-1)."""
+    f = np.float32 if dtype == "f32" else np.float64
+    rng = np.random.default_rng(seed)
+    out = []
+    for sign in (1.0, -1.0):
+        a = rng.standard_normal((E, L))
+        a[:, 0::3] = sign * np.abs(a[:, 0::3])
+        a[:, 1::3] = -sign * np.abs(a[:, 1::3])
+        u = rng.random((E, L))
+        a[u < 0.3] = 0.0
+        a[(u >= 0.3) & (u < 0.6)] = -0.0
+        a[(u >= 0.6) & (u < 0.61)] = np.inf
+        a[(u >= 0.61) & (u < 0.62)] = -np.inf
+        ne = int(round((E / 6) ** 0.5))
+        for e in (0, ne - 1, ne * ne - ne, ne * ne - 1):
+            a[e, -1] = -sign * 1e30
+        out.append(a.astype(f))
+    return out
+
+
+# K6's edge cases (ne, L, kind): the ne = 2 sphere (every element on a
+# seam) and NE30; one lane, lane counts that 16-byte vectors do not
+# divide, the NE30 lanes (35 x 72) and one more; bounds that are not
+# 16-byte aligned (one lane a thread)
+K6_CASES = {f"ne{ne}_L{L}": (ne, L, None)
+            for ne in (2, 30) for L in (1, 3, 72, 2520, 2521)}
+K6_CASES.update(ne2_unaligned=(2, 72, "unaligned"),
+                ne30_unaligned=(30, 2520, "unaligned"))
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k6_edge_shapes_bitwise(cuda, dtype, case):
+    """K6 == its plain version bit for bit (-0 and +0 apart)."""
+    from transport_se_tpu_torch.ops import dss_face
+    ne, L, kind = K6_CASES[case]
+    E = 6 * ne * ne
+    f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    ft = _face_tables(ne)
+    mn, mx = (torch.from_numpy(a).to(cuda, f)
+              for a in _k6_edge_bounds(E, L, dtype, ne * 10000 + L))
+    if kind == "unaligned":
+        bufs = [torch.empty(E * L + 1, dtype=f, device=cuda) for _ in "ab"]
+        mn, mx = (b[1:].view(E, L).copy_(a) for a, b in zip((mn, mx), bufs))
+        assert mn.data_ptr() % 16 and mx.data_ptr() % 16
+    want = dss_face.neighbor_minmax_plain(mn, mx, ft)
+    counters.reset()
+    got = dss_face.neighbor_minmax(mn, mx, ft)
+    assert counters.snapshot()["neighbor_minmax"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b)), (
+            case, (a - b).abs().max().item())
+    if E * L > 100:
+        for w in want:
+            z = w[w == 0]
+            assert torch.signbit(z).any() and (~torch.signbit(z)).any()

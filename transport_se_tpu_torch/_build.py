@@ -73,6 +73,9 @@ ENTRIES = {
     # L nk | out[5]: K5's lanes a thread, threads, lane groups an element,
     # shared bytes per block, blocks/SM
     "tse_minmax_config": [I, I, P],
+    # E L | out[5]: K6's lanes a thread, threads a block, blocks, shared
+    # bytes per block, blocks/SM
+    "tse_nbr_minmax_config": [I, I, P],
 }
 
 _lock = threading.Lock()

@@ -20,15 +20,21 @@
 // Design, against the TPU form: the Pallas kernel streams blocks of whole
 // element rows of one face through VMEM, takes the in-face partners as
 // shifted slices of the block, and DMAs seam ghost strips (with zero or
-// +-inf padding rows for the cube vertices) beside each block.  Here a
-// thread owns one (element, lane) column, as K1 does, and reads each
-// partner value straight from device memory through a host-built table:
-// K4's [E, 16, 3] role-ordered partner slots (x-edge partner, corner
-// diagonal, y-edge partner; -1 where absent) and K6's [E, 9] neighbour
-// elements (self-padded at cube vertices).  A block is one element's 128
+// +-inf padding rows for the cube vertices) beside each block.  Here K4
+// gives a thread one (element, lane) column, as K1 does, and reads each
+// partner value straight from device memory through a host-built table,
+// [E, 16, 3] role-ordered partner slots (x-edge partner, corner diagonal,
+// y-edge partner; -1 where absent).  A block is one element's 128
 // adjacent lanes, so every partner read of a warp is one coalesced row
 // segment; the partner rows are other blocks' own rows and mostly hit L2.
 // No row blocks, ghost strips, lane chunks or padding.
+//
+// K6 keeps the Pallas kernel's separable form and its march over a face's
+// rows (see nbr_minmax_kernel): its first form, a thread per (element,
+// lane) reading the 9 neighbour rows of both arrays through the [E, 9]
+// table, moved 9 times the arrays from L2 and took 0.15-0.16 ms f32 /
+// 0.26 f64 at NE30 on an H100, 41% / 51% of its bound.  The seam rows and
+// columns of a face's window come from the same table's edge slots.
 //
 // K5 takes K7's min/max form (band.cu).  Its first form, a thread per
 // column with 16 IEEE divisions and 16 reads of dp[e, p, lane % nk] (each
@@ -230,27 +236,242 @@ minmax_kernel(const T* __restrict__ x, const T* __restrict__ dp,
   }
 }
 
+// K6's launch shape (k6_variants measures the choices): a block takes one
+// face, a strip of at most kNbrCols element columns, a segment of at most
+// kNbrRows element rows, which it marches, and a chunk of kNbrChunk
+// 16-byte lane vectors (threadIdx.x) for each of its columns (threadIdx.y);
+// kNbrStages window rows are in shared memory at once, all but one in
+// flight.  Measured at NE30 on an H100 (PERF.md): rings of 3, 4 and 6 rows
+// were no faster than 2, nor were 8 or 30 rows, 6 or 15 columns, 16
+// vectors or cached stores; within 1-3% of each other, 10% above two
+// Tensor.copy_ calls of the same bytes
+constexpr int kNbrChunk = 32;
+constexpr int kNbrCols = 10;
+constexpr int kNbrRows = 15;
+constexpr int kNbrStages = 2;
+// measuring switch (k6_variants): the bounds stored with the evict-first
+// hint (st.global.cs)
+constexpr bool kNbrStreamStores = true;
+static_assert(kNbrCols >= 2, "a strip's halo columns need two columns");
+static_assert(kNbrStages >= 2, "a row in flight beside the one reduced");
+
+// A value's bits as an integer ordered as the values, -0 below +0 (IEEE
+// 754-2019 minimum/maximum; NaN is not in the domain).  The map is its own
+// inverse.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct Order;
+
+template <>
+struct Order<float> {
+  using K = int;
+  static __device__ __forceinline__ K key(float v) {
+    const int i = __float_as_int(v);
+    return i ^ ((i >> 31) & 0x7fffffff);
+  }
+  static __device__ __forceinline__ float value(K k) {
+    return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+  }
+  static __device__ __forceinline__ float inf() {
+    return __int_as_float(0x7f800000);
+  }
+};
+
+template <>
+struct Order<double> {
+  using K = long long;
+  static __device__ __forceinline__ K key(double v) {
+    const long long i = __double_as_longlong(v);
+    return i ^ ((i >> 63) & 0x7fffffffffffffffLL);
+  }
+  static __device__ __forceinline__ double value(K k) {
+    return __longlong_as_double(k ^ ((k >> 63) & 0x7fffffffffffffffLL));
+  }
+  static __device__ __forceinline__ double inf() {
+    return __longlong_as_double(0x7ff0000000000000LL);
+  }
+};
+
+// V values in one shared-memory access
+template <typename T, int V>
+struct alignas(V * sizeof(T)) Pack {
+  T v[V];
+};
+
+// BYTES (4, 8 or 16, aligned) from device memory into shared memory
+// without passing through a register (cp.async; 16 bytes bypass L1)
+template <int BYTES>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(BYTES));
+#else
+  for (int i = 0; i < BYTES; ++i)
+    static_cast<unsigned char*>(dst)[i] =
+        static_cast<const unsigned char*>(src)[i];
+#endif
+}
+
+__device__ __forceinline__ void copy_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// until at most N of this thread's latest commit groups are in flight
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+struct NbrGrid {
+  int chunks, segs, strips, rows, cols;
+};
+
+// The element at row y, column x of face f's window: the face's own rows
+// and columns, the seam neighbours of its edge elements beyond them (the
+// +x, -x, +y, -y slots of nbr), and -1 at the four corners (cube vertices)
+__device__ __forceinline__ int window_elem(const int64_t* __restrict__ nbr,
+                                           int f, int ne, int y, int x) {
+  const int base = f * ne * ne;
+  const bool yin = y >= 0 && y < ne, xin = x >= 0 && x < ne;
+  if (yin && xin) return base + y * ne + x;
+  if (yin)
+    return int(nbr[int64_t(base + y * ne + (x < 0 ? 0 : ne - 1)) * 9 +
+                   (x < 0 ? 2 : 1)]);
+  if (xin)
+    return int(nbr[int64_t(base + (y < 0 ? 0 : ne - 1) * ne + x) * 9 +
+                   (y < 0 ? 4 : 3)]);
+  return -1;
+}
+
+// The separable 3x3 reduce of the Pallas kernel: the row-direction minimum
+// m1 of each element over itself and its x neighbours, then the minimum of
+// m1 over the rows above and below.  A block marches its segment's rows
+// from the one below to the one above.  Each window row (the strip's
+// columns and one halo column on each side, both arrays) is copied once
+// into a ring of kNbrStages rows in shared memory by cp.async, issued
+// kNbrStages - 1 rows ahead of the row reduced; each thread takes its
+// column's m1 from its own and the two adjacent columns there, and keeps
+// m1 of the last row and the minimum of the last two in registers.  So a
+// block reads (rows + 2)(cols + 2) element rows of each array for rows x
+// cols outputs, 1.36 times the arrays at NE30 (the direct form read 9
+// rows for each output).  The values are reduced as order-preserving
+// integer keys: min and max are exact and independent of order, -0 below
+// +0, so the kernel gives the plain version's bits at any association.
+template <typename T, int V>
+__global__ void __launch_bounds__(kNbrChunk * kNbrCols)
 nbr_minmax_kernel(const T* __restrict__ qmin, const T* __restrict__ qmax,
                   const int64_t* __restrict__ nbr, T* __restrict__ gmin,
-                  T* __restrict__ gmax, int L) {
-  __shared__ int64_t sN[9];
-  const int64_t e = blockIdx.x;
-  if (threadIdx.x < 9) sN[threadIdx.x] = nbr[e * 9 + threadIdx.x];
+                  T* __restrict__ gmax, int ne, int L, NbrGrid g) {
+  using O = Order<T>;
+  using K = typename O::K;
+  using P = Pack<T, V>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = kNbrChunk, bx = g.cols, span = W * V;
+  const int wcols = bx + 2;
+  // [stage][min, max][window column][lane]
+  const int stage = 2 * wcols * span;
+  T* sQ = reinterpret_cast<T*>(smem);
+  int* sIdx = reinterpret_cast<int*>(sQ + kNbrStages * stage);
+
+  int b = blockIdx.x;
+  const int chunk = b % g.chunks;
+  b /= g.chunks;
+  const int seg = b % g.segs;
+  b /= g.segs;
+  const int strip = b % g.strips;
+  const int f = b / g.strips;
+  const int ex0 = strip * bx, ey0 = seg * g.rows;
+  const int ncols = min(bx, ne - ex0), nrows = min(g.rows, ne - ey0);
+  if (ncols <= 0 || nrows <= 0) return;
+  const int w = threadIdx.x, c = threadIdx.y;
+  const int tid = c * W + w, nthr = W * bx;
+  const int lane = chunk * span + w * V;
+  const bool live = lane < L;
+  const bool own = c < ncols && live;
+
+  // the window's elements: rows ey0-1 .. ey0+nrows, columns ex0-1 ..
+  // ex0+ncols
+  const int wc = ncols + 2;
+  for (int i = tid; i < (nrows + 2) * wc; i += nthr)
+    sIdx[i] = window_elem(nbr, f, ne, ey0 - 1 + i / wc, ex0 - 1 + i % wc);
   __syncthreads();
-  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  T mn = qmin[e * L + lane], mx = qmax[e * L + lane];
+
+  // window row r (-1 .. nrows) into its stage, one commit group a row (an
+  // empty one past the last): a thread copies window columns c and c + bx
+  // of its lane vector
+  const int nslots = wc * W;
+  auto issue = [&](int r) {
+    if (r <= nrows && live) {
+      T* st = sQ + ((r + 1) % kNbrStages) * stage;
 #pragma unroll
-  for (int k = 1; k < 9; ++k) {
-    const T a = qmin[sN[k] * L + lane];
-    const T b = qmax[sN[k] * L + lane];
-    mn = a < mn ? a : mn;
-    mx = b > mx ? b : mx;
+      for (int k = 0; k < 2; ++k) {
+        const int s = tid + k * nthr;
+        const int x = s / W;
+        const int e = s < nslots ? sIdx[(r + 1) * wc + x] : -1;
+        if (e >= 0) {
+          constexpr int bytes = V * sizeof(T);
+          const int64_t off = int64_t(e) * L + lane;
+          copy_async<bytes>(st + x * span + w * V, qmin + off);
+          copy_async<bytes>(st + (wcols + x) * span + w * V, qmax + off);
+        }
+      }
+    }
+    copy_commit();
+  };
+
+  const K pad_mn = O::key(O::inf()), pad_mx = O::key(-O::inf());
+  K c_mn[V], c_mx[V], p_mn[V], p_mx[V];  // m1 of row r-1; min of r-2, r-1
+#pragma unroll
+  for (int v = 0; v < V; ++v) c_mn[v] = pad_mn, c_mx[v] = pad_mx;
+  for (int j = -1; j < kNbrStages - 2; ++j) issue(j);
+  for (int r = -1; r <= nrows; ++r) {
+    copy_wait<kNbrStages - 2>();
+    __syncthreads();
+    // the stage of row r - 1, reduced by every thread before the barrier
+    issue(r + kNbrStages - 1);
+    if (!own) continue;
+    const T* st = sQ + ((r + 1) % kNbrStages) * stage + c * span + w * V;
+    const int* idx = sIdx + (r + 1) * wc + c;
+    K n_mn[V], n_mx[V];  // m1 of row r
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const bool pad = idx[j] < 0;
+      const P a = *reinterpret_cast<const P*>(st + j * span);
+      const P z = *reinterpret_cast<const P*>(st + (wcols + j) * span);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const K ka = pad ? pad_mn : O::key(a.v[v]);
+        const K kz = pad ? pad_mx : O::key(z.v[v]);
+        n_mn[v] = j == 0 ? ka : min(n_mn[v], ka);
+        n_mx[v] = j == 0 ? kz : max(n_mx[v], kz);
+      }
+    }
+    if (r >= 1) {
+      T omn[V], omx[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        omn[v] = O::value(min(p_mn[v], n_mn[v]));
+        omx[v] = O::value(max(p_mx[v], n_mx[v]));
+      }
+      const int64_t at =
+          int64_t(f * ne * ne + (ey0 + r - 1) * ne + ex0 + c) * L + lane;
+      tse::store_v<kNbrStreamStores, V>(gmin + at, omn);
+      tse::store_v<kNbrStreamStores, V>(gmax + at, omx);
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      p_mn[v] = min(c_mn[v], n_mn[v]), c_mn[v] = n_mn[v];
+      p_mx[v] = max(c_mx[v], n_mx[v]), c_mx[v] = n_mx[v];
+    }
   }
-  gmin[e * L + lane] = mn;
-  gmax[e * L + lane] = mx;
 }
 
 // flags: 1 avg, 2 min/max of out/dp, 4 Laplacian of out/dp (needs 2)
@@ -345,16 +566,69 @@ int launch_minmax(const void* x, const void* dp, void* qmin, void* qmax,
   return run_minmax<T, 1>(xt, dpt, mn, mx, E, L, nk, st, config);
 }
 
+// Launches K6 at lane width V; with config, fills config[5] = {lanes a
+// thread, threads a block, blocks, dynamic shared bytes a block, resident
+// blocks per SM} instead
+template <typename T, int V>
+int run_nbr_minmax(const T* qmin, const T* qmax, const int64_t* nbr, T* gmin,
+                   T* gmax, int ne, int L, cudaStream_t st, int* config) {
+  auto kernel = nbr_minmax_kernel<T, V>;
+  const int span = kNbrChunk * V;
+  NbrGrid g;
+  g.chunks = (L + span - 1) / span;
+  g.strips = (ne + kNbrCols - 1) / kNbrCols;
+  g.cols = (ne + g.strips - 1) / g.strips;
+  g.segs = (ne + kNbrRows - 1) / kNbrRows;
+  g.rows = (ne + g.segs - 1) / g.segs;
+  const size_t smem =
+      size_t(kNbrStages) * 2 * (g.cols + 2) * span * sizeof(T) +
+      size_t(g.rows + 2) * (g.cols + 2) * sizeof(int);
+  if (smem > size_t(kSmemMax)) return int(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+  }
+  const dim3 block(kNbrChunk, g.cols);
+  const long long blocks = 6LL * g.strips * g.segs * g.chunks;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  if (config != nullptr) {
+    int resident = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, kernel, int(block.x * block.y), smem);
+    if (err != cudaSuccess) return int(err);
+    config[0] = V;
+    config[1] = int(block.x * block.y);
+    config[2] = int(blocks);
+    config[3] = int(smem);
+    config[4] = resident;
+    return 0;
+  }
+  kernel<<<unsigned(blocks), block, smem, st>>>(qmin, qmax, nbr, gmin, gmax,
+                                                ne, L, g);
+  return int(cudaGetLastError());
+}
+
+// E = 6 ne^2 elements in raster face order.  16-byte vectors where L and
+// the pointers allow them, else one lane a thread (null pointers: the
+// launch shape for aligned bounds)
 template <typename T>
 int launch_nbr_minmax(const void* qmin, const void* qmax, const void* nbr,
-                      void* gmin, void* gmax, int E, int L, void* stream) {
-  if (E <= 0 || L <= 0) return int(cudaErrorInvalidValue);
-  const dim3 grid(E, (L + kThreads - 1) / kThreads);
-  nbr_minmax_kernel<T>
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          (const T*)qmin, (const T*)qmax, (const int64_t*)nbr, (T*)gmin,
-          (T*)gmax, L);
-  return int(cudaGetLastError());
+                      void* gmin, void* gmax, int E, int L, void* stream,
+                      int* config = nullptr) {
+  int ne = 1;
+  while (6LL * (ne + 1) * (ne + 1) <= E) ++ne;
+  if (E <= 0 || L <= 0 || 6 * ne * ne != E || ne < 2)
+    return int(cudaErrorInvalidValue);
+  constexpr int V = 16 / sizeof(T);
+  const T *mn = (const T*)qmin, *mx = (const T*)qmax;
+  T *gn = (T*)gmin, *gx = (T*)gmax;
+  const int64_t* nb = (const int64_t*)nbr;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (L % V == 0 && aligned<V>(mn) && aligned<V>(mx) && aligned<V>(gn) &&
+      aligned<V>(gx))
+    return run_nbr_minmax<T, V>(mn, mx, nb, gn, gx, ne, L, st, config);
+  return run_nbr_minmax<T, 1>(mn, mx, nb, gn, gx, ne, L, st, config);
 }
 
 }  // namespace
@@ -382,6 +656,11 @@ int launch_nbr_minmax(const void* qmin, const void* qmax, const void* nbr,
       const void* qmin, const void* qmax, const void* nbr, void* gmin,       \
       void* gmax, int E, int L, void* stream) {                              \
     return launch_nbr_minmax<T>(qmin, qmax, nbr, gmin, gmax, E, L, stream);  \
+  }                                                                          \
+  /* out[5]: K6's launch shape for aligned bounds */                         \
+  extern "C" int tse_nbr_minmax_config_##SUFFIX(int E, int L, int* out) {    \
+    return launch_nbr_minmax<T>(nullptr, nullptr, nullptr, nullptr, nullptr, \
+                                E, L, nullptr, out);                         \
   }
 
 DSS_ENTRIES(f32, float)

@@ -23,6 +23,25 @@ import os
 import sys
 
 
+def pick_device(flag):
+    """The device of a `--device cuda|cpu` flag, as (torch.device, name),
+    for every entry point of the port: cuda is device 0 and needs a card;
+    the CPU runs only when asked for.  Prints why and returns None where
+    there is no CUDA device.  Turns TF32 off: float32 products in full
+    precision, as the reference computes them."""
+    import torch
+    if flag == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda (the default) but "
+              "torch.cuda.is_available() is false; pass --device cpu to run "
+              "on the CPU", file=sys.stderr)
+        return None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if flag == "cuda":
+        return torch.device("cuda", 0), torch.cuda.get_device_name(0)
+    return torch.device("cpu"), "cpu"
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -33,17 +52,10 @@ def main(argv=None):
     p.add_argument("--quiet", action="store_true")
     args = p.parse_args(argv)
 
-    import torch
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("error: --device cuda (the default) but "
-              "torch.cuda.is_available() is false; pass --device cpu to run "
-              "on the CPU", file=sys.stderr)
+    picked = pick_device(args.device)
+    if picked is None:
         return 2
-    # full-precision float32 products (no TF32), as the reference computes
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0) if args.device == "cuda" else \
-        torch.device("cpu")
+    device, name = picked
 
     from . import counters
     from .diagnostics import print_cfl, test_global_integral
@@ -63,8 +75,6 @@ def main(argv=None):
         nl_dir = os.getcwd()
     rs = config_from_namelist(text, nl_dir=nl_dir)
     cfg = dataclasses.replace(rs.cfg, dtype=args.dtype)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
     print(f"transport_se_tpu_torch: ne={cfg.ne} nlev={cfg.nlev} "
           f"qsize={cfg.qsize} tstep={cfg.tstep} rsplit={cfg.rsplit} "
           f"test={cfg.test_case} nsteps={cfg.nsteps} device={device} "

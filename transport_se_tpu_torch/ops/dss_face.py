@@ -309,12 +309,22 @@ def minmax_prep_plain(x, dp, nq):
     return _q_minmax(x, dp, nq)
 
 
-def _nbr_reduce(q, ft: FaceTables, op, pad):
-    """neighbor_minmax_face's shifted-copy reduce of q [E, L] with op."""
+def _ordered(q):
+    """q's bits as integers ordered as the values, -0 below +0 (IEEE
+    754-2019 minimum and maximum, as the JAX package's jnp.minimum and
+    jnp.maximum order them; NaN is not in the domain).  The map is its own
+    inverse: _ordered(_ordered(q)) gives q's bits back."""
+    i = q.view(torch.int32 if q.element_size() == 4 else torch.int64)
+    return torch.where(i < 0, i ^ torch.iinfo(i.dtype).max, i)
+
+
+def _nbr_reduce(k, ft: FaceTables, op, pad):
+    """neighbor_minmax_face's shifted-copy reduce with op of the keys k
+    [E, L] (_ordered), with the key pad at the cube vertices."""
     ne = ft.ne
-    E, L = q.shape
-    q6 = q.reshape(6, ne, ne, L)             # [f, ey, ex, L]
-    spx, smx, spy, smy = (q.index_select(0, s.reshape(-1)).reshape(6, ne, L)
+    E, L = k.shape
+    q6 = k.reshape(6, ne, ne, L)             # [f, ey, ex, L]
+    spx, smx, spy, smy = (k.index_select(0, s.reshape(-1)).reshape(6, ne, L)
                           for s in (ft.src_px, ft.src_mx, ft.src_py,
                                     ft.src_my))
 
@@ -350,10 +360,17 @@ def _nbr_reduce(q, ft: FaceTables, op, pad):
 
 def neighbor_minmax_plain(qmin, qmax, ft: FaceTables):
     """Plain PyTorch version of the neighbor min/max; see
-    neighbor_minmax."""
+    neighbor_minmax.  It reduces integer keys of the values (_ordered):
+    exact, -0 below +0, so the result does not depend on the order of the
+    reduction (torch.minimum's choice between tied zeros does)."""
     bump("neighbor_minmax_plain")
-    return (_nbr_reduce(qmin, ft, torch.minimum, float("inf")),
-            _nbr_reduce(qmax, ft, torch.maximum, float("-inf")))
+    out = []
+    for q, op, pad in ((qmin, torch.minimum, float("inf")),
+                       (qmax, torch.maximum, float("-inf"))):
+        pk = _ordered(torch.full((1,), pad, dtype=q.dtype)).item()
+        out.append(_ordered(_nbr_reduce(_ordered(q), ft, op, pk))
+                   .view(q.dtype))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -462,9 +479,22 @@ def kernel_config(L, nk, dtype):
                      "blocks_per_sm"), buf))
 
 
+def nbr_kernel_config(E, L, dtype):
+    """K6's launch shape on E = 6 ne^2 elements of L lanes for 16-byte-
+    aligned bounds, on the current card: lanes per thread, threads per
+    block, blocks, dynamic shared-memory bytes per block and resident
+    blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs
+    a CUDA device."""
+    buf = (ctypes.c_int * 5)()
+    fn = _build.entry("tse_nbr_minmax_config", _DTYPES[dtype])
+    _build.check(fn(int(E), int(L), buf), "nbr_minmax_config")
+    return dict(zip(("vec", "threads", "blocks", "smem_bytes",
+                     "blocks_per_sm"), buf))
+
+
 def neighbor_minmax(qmin, qmax, ft: FaceTables):
     """Min of qmin and max of qmax [E, L] over each element and its (up to
-    8) point-sharing neighbors (viscosity_mod.F90:748-816)."""
+    8) point-sharing neighbors (viscosity_mod.F90:748-816), -0 below +0."""
     kind = _device_kind(qmin)
     E, L = qmin.shape
     dev, f = qmin.device, qmin.dtype
