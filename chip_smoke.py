@@ -62,6 +62,23 @@ the result lines):
      within 1e-2 relative of the published f64 norms; then the
      conservation gate (python -m transport_se_tpu_torch.audit_drift) on
      the NE8 perf configuration over 12 days, drift below 2e-4
+ 17. the NE42 proxy (perf_config(42, f32), 10584 elements, NE120's tstep
+     and nu): one face subcycle through the kernels against the plain
+     versions, its launch counts, min_dp and tracer mass; then the port's
+     benchmark (python -m transport_se_tpu_torch.bench, a subprocess, with
+     its defaults: the NE30 row and the NE42 proxy row), its JSON line and
+     each row's windows and launches
+ 18. the sharded NE30 f32 gather T subcycle at S = 8 with overlap on (the
+     boundary-first split: K1 on the boundary group, then on the interior)
+     and off, against each other and against one device: bits or max
+     difference, each run's first subcycle against one device's through
+     the plain versions (TOL f32), launches per shard, min_dp, tracer
+     mass, ms per subcycle
+ 19. the dry run (transport_se_tpu_torch.dryrun dryrun_multichip(8) on the
+     card: the face+overlap f64 case and the gather split f32 case), each
+     case's state against one device's subcycle of its configuration
+     through the plain versions (TOL of its dtype), and one step of its
+     one-device entry(); the run's wall so far
 Then one JSON line of per-kernel results (the launches of K2 from the
 gather run of phase 4, of K10 from the NE30 CLI run of phase 10, of K7
 from the S = 8 run of phase 14, all others from the face run of phase 4;
@@ -146,6 +163,29 @@ GATHER_COUNTS = {"fused_advect_limit": 18, "laplace_wk_t": 6,
 SHARDED_SUBCYCLES = 4            # one warm-up, three timed
 K7_VARIANTS = ("raw", "scale", "scale+minmax", "scale+minmax+lap")
 SHARDED_S = 8
+# one face subcycle (phase 17): the 4 face DSS a step and the 6 of the wind
+# basis built with the subcycle function, K1 a stage, K5 once, K6 on
+# stages 0 and 2, K3 once
+FACE_SUBCYCLE_COUNTS = {"fused_advect_limit": 9, "laplace_wk_t": 0,
+                        "remap_q_ppm_t": 1, "dss_face": 4 * 3 + 6,
+                        "minmax_prep": 1, "neighbor_minmax": 6,
+                        "limiter_optim": 0, "dss_band": 0}
+PROXY_NE = 42
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ne42_proxy_value",
+              "ne42_proxy_vs_baseline"}
+BENCH_TIMEOUT = 600      # s, the benchmark subprocess of phase 17
+GATHER_SUBCYCLES = 3     # phase 18: one warm-up, two timed
+
+
+def gather_shard_counts(S, nsub, overlap):
+    """The sharded gather T path, per shard and subcycle: K1 once a stage,
+    twice with the boundary-first split; K2 for stage 2's first Laplacian
+    of each step; K3 once; the DSS, bound prep and neighbour bounds are
+    plain gathers."""
+    return {"fused_advect_limit": S * 9 * nsub * (2 if overlap else 1),
+            "laplace_wk_t": S * 3 * nsub, "remap_q_ppm_t": S * nsub,
+            "dss_face": 0, "minmax_prep": 0, "neighbor_minmax": 0,
+            "limiter_optim": 0, "dss_band": 0}
 
 
 def sharded_counts(S, nsub, overlap):
@@ -380,7 +420,7 @@ def port_modules():
     """The port's modules this script drives, imported (the script's one
     import block of the port)."""
     from transport_se_tpu_torch import (_build, audit_drift, counters,
-                                        k10_variants, verify)
+                                        dryrun, k10_variants, verify)
     from transport_se_tpu_torch.config import (dcmip11_ne8, dcmip11_ne30,
                                                dcmip12_ne30, perf_config)
     from transport_se_tpu_torch.model import core, driver, wind_basis
@@ -390,7 +430,7 @@ def port_modules():
     from transport_se_tpu_torch.parallel import (comm, face_sharded, halo,
                                                  sharded)
     return dict(_build=_build, audit_drift=audit_drift, counters=counters,
-                k10_variants=k10_variants, verify=verify,
+                dryrun=dryrun, k10_variants=k10_variants, verify=verify,
                 dcmip11_ne8=dcmip11_ne8,
                 dcmip11_ne30=dcmip11_ne30, dcmip12_ne30=dcmip12_ne30,
                 perf_config=perf_config, core=core, driver=driver,
@@ -402,6 +442,7 @@ def port_modules():
 
 
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError as e:
@@ -1410,6 +1451,178 @@ def main():
         f"relative mass drift max {a['max']:.3e}, median "
         f"{a['median']:.3e} (gate {mods['audit_drift'].GATE:.0e}); min_dp "
         f"{a['min_dp']:.6g}; wall {a['wall']:.2f} s")
+
+    # ---- 17. the NE42 proxy subcycle, then the port's benchmark ----------
+    cfg42 = perf_config(PROXY_NE, dtype="f32", use_pallas=True)
+    m42 = build_model(cfg42, dev)
+    E42, nq, nk = m42.lon.shape[0], cfg42.qsize, cfg42.nlev
+    Q42 = initial_qdp(m42)
+    sp42 = m42.spheremp.double()
+    mass0 = torch.einsum("eqkij,eij->q", Q42.double(), sp42)
+    Qt42 = _tp(Q42, E42, nq * nk)
+    del Q42
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    out42, _, _, md42 = make_subcycle_fn(m42, io_layout="t")(Qt42, 0)
+    torch.cuda.synchronize()
+    c42 = counters.snapshot()
+    for k, n in FACE_SUBCYCLE_COUNTS.items():
+        check(c42[k] == n and c42[k + "_plain"] == 0, f"NE42 subcycle: {k} "
+              f"{c42[k]} (plain {c42[k + '_plain']}), want {n}")
+    out42p = make_subcycle_fn(m42, io_layout="t", plain=True)(Qt42, 0)[0]
+    torch.cuda.synchronize()
+    a42, r42 = rel_err(torch, out42, out42p)
+    check(r42 <= TOL["f32"], f"NE42 subcycle kernels vs plain rel {r42:.3e}")
+    check(bool(torch.isfinite(out42).all()) and float(md42) > 0,
+          f"NE42 subcycle: non-finite state or min_dp {float(md42)}")
+    mass1 = torch.einsum("epqk,ep->q",
+                         out42.double().reshape(E42, 16, nq, nk),
+                         sp42.reshape(E42, 16))
+    dmass = ((mass1 - mass0).abs() / mass0.abs()).max().item()
+    check(dmass < MASS_TOL, f"NE42 subcycle: mass change {dmass:.3e}")
+    say(f"phase 17 NE{PROXY_NE} f32 face subcycle (E={E42}, tstep "
+        f"{cfg42.tstep:g}, nu_q {cfg42.nu_q:g}, limiter cap "
+        f"{cfg42.limiter_iter_cap}) kernels vs plain: max abs {a42:.3e}, max "
+        f"rel {r42:.3e} (tol {TOL['f32']:.0e}); launches "
+        + ", ".join(f"{k} {c42[k]}" for k in FACE_SUBCYCLE_COUNTS)
+        + f"; min_dp {float(md42):.6g}; max relative tracer-mass change "
+        f"{dmass:.3e}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del m42, Qt42, out42, out42p
+    torch.cuda.empty_cache()
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    bp = subprocess.run([sys.executable, "-m", "transport_se_tpu_torch.bench"],
+                        cwd=ROOT, env=env, capture_output=True, text=True,
+                        timeout=BENCH_TIMEOUT)
+    bench_s = time.perf_counter() - t0
+    for ln in bp.stderr.strip().splitlines():
+        say(f"phase 17 bench stderr: {ln}")
+    check(bp.returncode == 0, f"bench exited {bp.returncode}")
+    out_lines = bp.stdout.strip().splitlines()
+    check(len(out_lines) == 1, f"bench printed {len(out_lines)} lines")
+    bres = json.loads(out_lines[0])
+    check(set(bres) == BENCH_KEYS, f"bench keys {sorted(bres)}")
+    check(all(bres[k] > 0 for k in ("value", "vs_baseline", "ne42_proxy_value",
+                                    "ne42_proxy_vs_baseline")),
+          f"bench: {bres}")
+    rows = [ln for ln in bp.stderr.splitlines() if " row: " in ln]
+    check(len(rows) == 2 and all("fused_advect_limit" in r and "_plain"
+                                 not in r for r in rows),
+          f"bench rows did not run the kernels: {rows}")
+    say(f"phase 17 bench: {json.dumps(bres)}; NE{NE} {bres['value']:.4e} "
+        f"({bres['vs_baseline']}x baseline), NE{PROXY_NE} proxy "
+        f"{bres['ne42_proxy_value']:.4e} ({bres['ne42_proxy_vs_baseline']}x)"
+        f" gridpoint-tracers/s on {card}; subprocess wall {bench_s:.1f} s")
+
+    # ---- 18. the sharded gather T subcycle: the boundary-first split ------
+    cfg18 = perf_config(NE, dtype="f32", dss_mode="gather", use_pallas=True)
+    m18 = build_model(cfg18, dev)
+    E, nq, nk = m18.lon.shape[0], cfg18.qsize, cfg18.nlev
+    Q18 = initial_qdp(m18)
+    sp = m18.spheremp.double()
+    mass0 = torch.einsum("eqkij,eij->q", Q18.double(), sp)
+    one = subcycles(make_subcycle_fn(m18, io_layout="t"), _tp(Q18, E, nq * nk),
+                    lambda st: core._tp_back(st, Q18.shape),
+                    n=GATHER_SUBCYCLES)
+    say(f"phase 18 NE{NE} f32 single-device gather T subcycle: median "
+        f"{statistics.median(one[3]):.2f} ms per subcycle (host wall "
+        f"{one[4]:.2f} ms); min_dp {one[2]}")
+    # the first subcycle through the kernels' plain versions on one device:
+    # the reference of every sharded run's first subcycle
+    plain18 = core._tp_back(make_subcycle_fn(m18, io_layout="t", plain=True)(
+        _tp(Q18, E, nq * nk), 0)[0], Q18.shape)
+    outs = {}
+    for overlap in (True, False):
+        counters.reset()
+        runner = sharded.make_sharded_subcycle(
+            m18, comm_mod.ThreadComm(SHARDED_S), overlap=overlap)
+        first, out, mds, ms, host = subcycles(
+            runner.step, runner.shard_qdp(Q18), runner.gather,
+            n=GATHER_SUBCYCLES)
+        counts = counters.snapshot()
+        nb, eloc = runner.plan.nbound, runner.plan.eloc
+        check((0 < nb < eloc) if overlap else nb == 0,
+              f"gather S={SHARDED_S} overlap {overlap}: nbound {nb} of {eloc}")
+        want = gather_shard_counts(SHARDED_S, GATHER_SUBCYCLES, overlap)
+        for k, n in want.items():
+            check(counts[k] == n and counts[k + "_plain"] == 0,
+                  f"gather S={SHARDED_S} overlap {overlap}: {k} {counts[k]} "
+                  f"(plain {counts[k + '_plain']}), want {n}")
+        check(bool(torch.isfinite(out).all()) and min(mds) > 0,
+              f"gather S={SHARDED_S}: non-finite state or min_dp {mds}")
+        mass1 = torch.einsum("eqkij,eij->q", out.double(), sp)
+        dmass = ((mass1 - mass0).abs() / mass0.abs()).max().item()
+        check(dmass < MASS_TOL, f"gather S={SHARDED_S}: mass {dmass:.3e}")
+        d1, r1 = rel_err(torch, out, one[1])
+        check(r1 <= TOL["f32"], f"gather S={SHARDED_S} overlap {overlap}: "
+              f"{r1:.3e} from one device")
+        dp, rp = rel_err(torch, first, plain18)
+        check(rp <= TOL["f32"], f"gather S={SHARDED_S} overlap {overlap}: "
+              f"first subcycle {rp:.3e} from the plain versions")
+        outs[overlap] = out
+        say(f"phase 18 NE{NE} f32 sharded gather T subcycle, S={SHARDED_S} "
+            f"threads, overlap {overlap} (nbound {nb} of eloc {eloc}): "
+            + ("bitwise equal to" if torch.equal(out, one[1]) else
+               f"max abs {d1:.3e} (rel {r1:.3e}) from")
+            + f" one device after {GATHER_SUBCYCLES} subcycles; first "
+            f"subcycle against the plain versions on one device: max abs "
+            f"{dp:.3e}, rel {rp:.3e} (tol {TOL['f32']:.0e}); launches per "
+            "shard a subcycle " + ", ".join(
+                f"{k} {counts[k] / SHARDED_S / GATHER_SUBCYCLES:g}"
+                for k in want if want[k])
+            + f"; min_dp {mds}; max relative tracer-mass change {dmass:.3e}; "
+            f"median {statistics.median(ms):.2f} ms per subcycle (min "
+            f"{min(ms):.2f}, max {max(ms):.2f}; host wall {host:.2f} ms)")
+        del runner, out, first
+    d, r = rel_err(torch, outs[True], outs[False])
+    check(r <= TOL["f32"], f"gather split vs no overlap rel {r:.3e}")
+    say("phase 18 split (overlap on) against overlap off: "
+        + ("bitwise equal" if torch.equal(outs[True], outs[False]) else
+           f"max abs {d:.3e}, rel {r:.3e} (tol {TOL['f32']:.0e})"))
+    del m18, Q18, one, outs, plain18
+    torch.cuda.empty_cache()
+
+    # ---- 19. the dry run and the one-device entry ------------------------
+    dryrun = mods["dryrun"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dr = dryrun.dryrun_multichip(SHARDED_S, dev)
+    for case, extra in (("face", "dss_band"), ("gather", "laplace_wk_t")):
+        la = dr[case]["launches"]
+        check(la.get("fused_advect_limit") == 2 * 9 * SHARDED_S
+              and la.get(extra, 0) > 0
+              and not any(k.endswith("_plain") for k in la),
+              f"dry run {case}: launches {la}")
+        # the sharded state against one device through the plain versions
+        cfg = dr[case]["cfg"]
+        mc = build_model(cfg, dev)
+        want = make_subcycle_fn(mc, plain=True)(initial_qdp(mc), 0)[0]
+        da, ra = rel_err(torch, dr[case]["state"], want)
+        check(ra <= TOL[cfg.dtype], f"dry run {case}: {ra:.3e} from the "
+              f"plain versions on one device (tol {TOL[cfg.dtype]:.0e})")
+        say(f"phase 19 dry run {case} ({cfg.dtype}, {cfg.dss_mode}) against "
+            f"one device through the plain versions: max abs {da:.3e}, rel "
+            f"{ra:.3e} (tol {TOL[cfg.dtype]:.0e})")
+    step, (q, n) = dryrun.entry(dev)
+    counters.reset()
+    q1, _, n1, md = step(q, n)
+    torch.cuda.synchronize()
+    ce = {k: v for k, v in counters.snapshot().items() if v}
+    check(n1 == 3 and float(md) > 0 and bool(torch.isfinite(q1).all())
+          and ce == {"limiter_optim": 3 * K10_PER_STEP},
+          f"entry step: nstep {n1}, min_dp {float(md)}, launches {ce}")
+    say(f"phase 19 {buf.getvalue().strip()}; launches face "
+        + ", ".join(f"{k} {v}" for k, v in dr["face"]["launches"].items())
+        + " | gather " + ", ".join(
+            f"{k} {v}" for k, v in dr["gather"]["launches"].items())
+        + f"; entry() NE8 DCMIP 1-1 f32 step: min_dp {float(md):.6g}, "
+        "launches " + ", ".join(f"{k} {v}" for k, v in ce.items())
+        + f"; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
+    del q, q1, step
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **results[k])

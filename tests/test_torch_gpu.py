@@ -632,6 +632,31 @@ def test_sharded_face_subcycle_on_card(cuda, dtype):
     _close(outs[0], single)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_sharded_gather_split_on_card(cuda, dtype):
+    """The sharded gather T subcycle in 4 threads with overlap on (the
+    boundary-first split: K1 twice a stage) == overlap off == one device,
+    bitwise; the split's kernels == their plain versions."""
+    from transport_se_tpu_torch.parallel.comm import ThreadComm
+    from transport_se_tpu_torch.parallel.sharded import make_sharded_subcycle
+    m = _model(dtype, cuda, "gather")
+    outs = []
+    for overlap in (True, False):
+        runner = make_sharded_subcycle(m, ThreadComm(4, timeout=300),
+                                       overlap=overlap)
+        assert (0 < runner.plan.nbound < runner.plan.eloc) == overlap
+        counters.reset()
+        states = runner.step(runner.shard_qdp(initial_qdp(m)), 0)[0]
+        c = counters.snapshot()
+        assert c["fused_advect_limit"] == 9 * 4 * (2 if overlap else 1)
+        assert c["laplace_wk_t"] == 3 * 4 and c["remap_q_ppm_t"] == 4
+        assert not any(v for k, v in c.items() if k.endswith("_plain"))
+        outs.append(runner.gather(states))
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], make_subcycle_fn(m)(initial_qdp(m), 0)[0])
+    _close(outs[0], make_subcycle_fn(m, plain=True)(initial_qdp(m), 0)[0])
+
+
 def _k10_edge_rows(E, q, k, dtype, seed):
     """limiter_optim_stage's arguments (ptens [E,q,k,16], spheremp [E,16],
     dp_star [E,k,16], qmin, qmax) from a numpy seed, with the edges of

@@ -9,7 +9,12 @@ The test runs this file as its worker in two processes:
 
 MODE "run" runs two subcycles and writes the state after the first as a
 restart file and after the second as numpy; "resume" reads a restart and
-runs one subcycle.  The worker imports only the port.
+runs one subcycle; "gather" runs two subcycles of the T-layout gather path
+with overlap on (boundary-first element order, each stage split into K1 on
+the boundary group and K1 on the interior, the halo rounds fed by the
+boundary group alone, started before the interior's K1 and waited for
+after it) and writes the state as numpy.  The worker imports
+only the port.
 """
 
 import os
@@ -25,11 +30,13 @@ NPROC = 2
 SUBPROCESS_TIMEOUT = 300
 
 
-def _config():
+def _config(mode="run"):
     from transport_se_tpu_torch.config import Config
+    dss = dict(dss_mode="gather", elem_order="gilbert") if mode == "gather" \
+        else dict(dss_mode="face", elem_order="raster")
     return Config(ne=4, nlev=8, qsize=2, tstep=1200.0, vcoord="dcmip8",
                   test_case="dcmip1-1", nu_q=6e16, nmax=6, dtype="f64",
-                  use_pallas=True, dss_mode="face", elem_order="raster")
+                  use_pallas=True, **dss)
 
 
 def _subcycles(runner, Qdp, nstep, n, gather):
@@ -50,12 +57,19 @@ def worker(rank, world, port, outdir, mode):
     from transport_se_tpu_torch.parallel.sharded import make_sharded_subcycle
     torch.set_num_threads(1)
     dev = multihost.init(f"tcp://localhost:{port}", world, rank, "cpu")
-    m = core.build_model(_config(), dev)
-    runner = make_sharded_subcycle(m, DistComm())
+    m = core.build_model(_config(mode), dev)
+    runner = make_sharded_subcycle(m, DistComm(),
+                                   overlap=True if mode == "gather" else None)
 
     def gather(states):
         return multihost.gather_canonical(runner, states)
-    if mode == "run":
+    if mode == "gather":
+        assert 0 < runner.plan.nbound < runner.plan.eloc
+        (_, (final, _)) = _subcycles(runner, core.initial_qdp(m), 0, 2,
+                                     gather)
+        if rank == 0:
+            np.save(os.path.join(outdir, "gather.npy"), final.numpy())
+    elif mode == "run":
         (mid, n1), (final, _) = _subcycles(runner, core.initial_qdp(m), 0, 2,
                                            gather)
         if rank == 0:
@@ -123,6 +137,29 @@ def test_two_processes_bitwise_and_resume(tmp_path):
     _launch(tmp_path, "resume")
     assert np.array_equal(np.load(tmp_path / "final2.npy"), final.numpy()), \
         "resume across process counts is not exact"
+
+
+def test_two_processes_gather_overlap_bitwise(tmp_path):
+    """The gather path's boundary-first split over 2 gloo processes gives
+    the bits of the same split over 2 threads."""
+    from transport_se_tpu_torch import counters
+    from transport_se_tpu_torch.model import core
+    from transport_se_tpu_torch.parallel.comm import ThreadComm
+    from transport_se_tpu_torch.parallel.sharded import make_sharded_subcycle
+    torch.set_num_threads(1)
+    m = core.build_model(_config("gather"), "cpu")
+    runner = make_sharded_subcycle(m, ThreadComm(NPROC, timeout=120),
+                                   overlap=True)
+    assert 0 < runner.plan.nbound < runner.plan.eloc
+    counters.reset()
+    (_, (final, _)) = _subcycles(runner, core.initial_qdp(m), 0, 2,
+                                 runner.gather)
+    # K1 twice a stage on each shard: the split ran
+    assert counters.snapshot()["fused_advect_limit_plain"] == \
+        2 * 2 * 9 * NPROC
+    _launch(tmp_path, "gather")
+    assert np.array_equal(np.load(tmp_path / "gather.npy"), final.numpy()), \
+        "the process count changed the bits of the split"
 
 
 if __name__ == "__main__":

@@ -12,8 +12,18 @@ virtual CPU devices, and == itself at any shard count.
   JAX tests' 1e-13 of the field's scale (tests/test_sharded.py:58);
   measured 1.3e-10 on 3.9e3 (3.4e-14);
 * S = 1 against S = 8 and overlap on against off: bitwise;
-* the T-layout gather path (overlap off) against the single-device
-  gather path: bitwise (the same partner order);
+* the T-layout gather path with overlap (boundary-first element order,
+  the split stage: K1 on the boundary group, then on the interior) against
+  the JAX package's split pipeline at (ne 4, S 4) and (ne 6, S 8), f64, at
+  the JAX test's rtol 1e-12 / atol 1e-13 (tests/test_sharded.py:107-108);
+  measured max abs difference 5.1e-11 (ne 4) and 4.4e-11 (ne 6) on Qdp
+  values up to 1.4e4 (3.6e-15 and 3.1e-15 of the scale), as on the face
+  path; K1 twice a stage per shard shows the split ran;
+* the T-layout gather path, overlap on and by default (off), against the
+  single-device
+  gather path at (ne 4, S 4) and (ne 6, S 8): bitwise (the same partner
+  order; K1's per-column results do not depend on the elements that share
+  its launch), with the launches of each;
 * a failing shard fails the run instead of hanging it, and the shared
   launch counts lose no update under threads.
 """
@@ -49,6 +59,7 @@ FACE = dict(nlev=8, qsize=2, tstep=1200.0, vcoord="dcmip8",
             test_case="dcmip1-1", nu_q=6e16, nmax=3, dtype="f64",
             use_pallas=True, dss_mode="face", elem_order="raster")
 STD = dict(ne=4, nlev=72, qsize=2, tstep=1200.0, nu_q=6e16, nmax=3)
+GATHER = dict(FACE, dss_mode="gather", elem_order="gilbert")
 
 
 @pytest.fixture(autouse=True)
@@ -124,17 +135,79 @@ def test_shard_count_and_overlap_do_not_change_the_bits():
     assert torch.equal(_port_sharded(std, 8)[0], _port_sharded(std, 1)[0])
 
 
-def test_t_gather_path_matches_single_device():
-    cfg = port_config(JConfig(ne=4, **dict(FACE, dss_mode="gather",
-                                           elem_order="gilbert")))
-    tm = tcore.build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        make_sharded_subcycle(tm, ThreadComm(4))
-    got, md, runner, c = _port_sharded(tm, 4, overlap=False)
-    assert c["laplace_wk_t_plain"] == 3 * 4 and c["dss_band_plain"] == 0
+@pytest.mark.parametrize("ne,S", [(4, 4), (6, 8)])
+def test_t_gather_path_matches_single_device(ne, S):
+    """The default (overlap off on the gather path), then overlap on (the
+    boundary-first split), each bitwise equal to one device.  Per shard
+    and subcycle K1 runs once a stage, twice with the split (boundary
+    group, interior), K2 once a step and K3 once; the DSS and the bounds
+    are plain gathers."""
+    tm = tcore.build_model(port_config(JConfig(ne=ne, **GATHER)), "cpu")
     single = tcore.make_subcycle_fn(tm)(tcore.initial_qdp(tm), 0)
-    assert torch.equal(got, single[0])
-    assert md == float(single[3])
+    for overlap in (None, True):
+        got, md, runner, c = _port_sharded(tm, S, overlap=overlap)
+        split = overlap is True
+        assert (0 < runner.plan.nbound < runner.plan.eloc) if split \
+            else runner.plan.nbound == 0
+        assert c["fused_advect_limit_plain"] == 9 * S * (2 if split else 1)
+        assert c["laplace_wk_t_plain"] == 3 * S
+        assert c["remap_q_ppm_t_plain"] == S
+        assert sum(v for k, v in c.items() if not k.endswith("_plain")) == 0
+        assert c["dss_band_plain"] == c["dss_face_plain"] == 0
+        assert c["minmax_prep_plain"] == c["neighbor_minmax_plain"] == 0
+        assert torch.equal(got, single[0])
+        assert md == float(single[3])
+
+
+@pytest.mark.parametrize("ne,S", [(4, 4), (6, 8)])
+def test_gather_split_matches_jax(ne, S):
+    jcfg = JConfig(ne=ne, **GATHER)
+    jm = jcore.build_model(jcfg)
+    want, jmd = _jax_sharded(jm, S)          # the JAX default: the split
+    tm = tcore.build_model(port_config(jcfg), "cpu")
+    got, md, runner, c = _port_sharded(tm, S, overlap=True)
+    assert runner.io_layout == "t" and not runner.overlap_face
+    assert 0 < runner.plan.nbound < runner.plan.eloc
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-13)
+    assert md == pytest.approx(jmd, rel=1e-12) and md > 0
+
+
+def test_gather_split_exchanges_beside_the_interior(monkeypatch):
+    """In every split stage of every shard the boundary group's halo
+    exchange starts after K1 on the boundary group and is waited for only
+    after K1 on the interior has been issued."""
+    tm = tcore.build_model(port_config(JConfig(ne=4, **GATHER)), "cpu")
+    log = {}
+    k1 = tcore.fused_advect_limit
+    start = ThreadComm.exchange_start
+
+    def note(event):
+        log.setdefault(threading.current_thread().name, []).append(event)
+
+    def k1_noted(Qt, *a, **k):
+        note(Qt.shape[0])
+        return k1(Qt, *a, **k)
+
+    def start_noted(self, *a):
+        finish = start(self, *a)
+        note("start")
+
+        def finish_noted():
+            note("finish")
+            return finish()
+        return finish_noted
+    monkeypatch.setattr(tcore, "fused_advect_limit", k1_noted)
+    monkeypatch.setattr(ThreadComm, "exchange_start", start_noted)
+    got, md, runner, c = _port_sharded(tm, 4, overlap=True)
+    nb, el = runner.plan.nbound, runner.plan.eloc
+    assert 0 < nb < el and nb != el - nb
+    want = [nb, "start", el - nb, "finish"]
+    for name in (f"shard-{r}" for r in range(4)):
+        ev = log[name]
+        assert el not in ev
+        at = [j for j, e in enumerate(ev) if e == nb]
+        assert len(at) == 9
+        assert all(ev[j:j + 4] == want for j in at), ev
 
 
 def test_failing_shard_fails_the_run():

@@ -29,9 +29,11 @@ Two pipelines, chosen as the JAX package chooses them
   are plain PyTorch and stage 2 runs the weak-Laplacian kernel K2.
 
 Both run per shard unchanged (parallel/sharded.py): a shard's Model holds
-its slice of the element arrays (`shard_model`) and a ShardedDssTables,
-and on the face path with overlap the stage runs once more on the
-boundary group to give the halo payload (`euler_step_t`).
+its slice of the element arrays (`shard_model`) and a ShardedDssTables.
+With overlap, the face path runs each stage once more on the boundary
+group to give the halo payload, and the gather path (elements in
+boundary-first order) runs each stage as two launches, boundary group then
+interior (`euler_step_t`).
 
 rhs_bf16 (a TPU matmul-precision knob) is not ported and raises.
 """
@@ -303,6 +305,11 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
     output/next_dp (face mode only; the gather mode gives None).  pre_lap:
     that Laplacian, for stage 2.  avg_t: fuse qdp_time_avg into the
     output.  plain: run the kernels' plain PyTorch versions (test-only).
+    On a shard in boundary-first order (tables.nbound between 0 and E)
+    K1 runs on the boundary group and on the interior apart, the DSS takes
+    its halo from the boundary group's output alone (its exchange started
+    before the interior's launch), and the next stage's bound prep is left
+    to that stage.
     Returns (Qt', qmin', qmax', ((next_qmin, next_qmax), next_lap) or
     None)."""
     cfg = m.cfg
@@ -340,8 +347,34 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
 
     kw = dict(bih=bih, nu_coef=nu_coef, dp0=m.dp0ref,
               max_iter=cfg.limiter_iter_cap or MAX_ITER)
-    out_t, qmin_o, qmax_o = advect(Qt, uv_t, dp_t, divdp_t, qmin, qmax,
-                                   m.met, m.deriv, float(dt), **kw)
+    def advect_on(pick):
+        """K1 on the elements pick(a) selects of every per-element operand."""
+        def cut(a):
+            return None if a is None else pick(a)
+        return advect(cut(Qt), (cut(uv_t[0]), cut(uv_t[1])), cut(dp_t),
+                      cut(divdp_t), cut(qmin), cut(qmax), cut(m.met),
+                      m.deriv, float(dt), **dict(kw, bih=cut(bih)))
+
+    nb = getattr(tb, "nbound", 0)
+    if 0 < nb < E:
+        # boundary/interior split (boundary-first element order; JAX
+        # core.py:322-350): K1 on the boundary group, whose output alone
+        # feeds the halo rounds; the exchange is started before K1 runs on
+        # the interior, so a communicator that exchanges beside the device
+        # (DistComm) carries it while the interior computes.  Leading-
+        # dimension slices stay contiguous, and K1's per-column results do
+        # not depend on which elements share its launch, so the split
+        # changes no bit.
+        out_b, qmin_b, qmax_b = advect_on(lambda a: a[:nb])
+        pending = tb.halo_start(out_b)
+        out_i, qmin_i, qmax_i = advect_on(lambda a: a[nb:])
+        res = tb.dss_sum_t_split(out_b, out_i, pending) * rsp16[:, :, None]
+        if avg_t is not None:
+            res = (avg_t + 2.0 * res) / 3.0
+        # the next stage's bound prep stays unfused: it runs minmax_prep
+        return (res, torch.cat([qmin_b, qmin_i]), torch.cat([qmax_b, qmax_i]),
+                None)
+    out_t, qmin_o, qmax_o = advect_on(lambda a: a)
     dss_kw = {}
     if tb.overlap_face:
         # face+overlap composition (JAX core.py:358-380): the stage once
@@ -350,14 +383,7 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
         # depend on which elements share its launch, so xb is bitwise
         # out_t[bidx] and the assembly is unchanged; the payload depends
         # only on the small launch.
-        b = tb.bidx
-
-        def sel(a):
-            return None if a is None else a.index_select(0, b)
-        dss_kw["xb"] = advect(
-            sel(Qt), (sel(uv_t[0]), sel(uv_t[1])), sel(dp_t), sel(divdp_t),
-            sel(qmin), sel(qmax), sel(m.met), m.deriv, float(dt),
-            **dict(kw, bih=sel(bih)))[0]
+        dss_kw["xb"] = advect_on(lambda a: a.index_select(0, tb.bidx))[0]
     qmin, qmax = qmin_o, qmax_o
     if next_dp is not None:
         Qt_new, nmn, nmx, lap = tb.dss_scale_minmax_t(
@@ -388,12 +414,12 @@ def advect_rk2_t_parts(m: Model, Qt, uv_t, divdp_t, divdp_proj_t, dt_q,
         pre_minmax=pre_minmax0, next_dp=dp1_t, plain=plain)
     Qt2, qmin, qmax, nb2 = euler_step_t(
         m, Qt1, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt2, 1,
-        pre_minmax=nb1[0], next_dp=dp2_t, next_lap=m.cfg.nu_q > 0,
+        pre_minmax=nb1 and nb1[0], next_dp=dp2_t, next_lap=m.cfg.nu_q > 0,
         plain=plain)
     Qt3, qmin, qmax, nb3 = euler_step_t(
         m, Qt2, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt2, 2,
-        pre_minmax=nb2[0], pre_lap=nb2[1], avg_t=Qt, next_dp=next_step_dp,
-        plain=plain)
+        pre_minmax=nb2 and nb2[0], pre_lap=nb2 and nb2[1], avg_t=Qt,
+        next_dp=next_step_dp, plain=plain)
     return Qt3, divdp_proj_t, None if nb3 is None else nb3[0]
 
 

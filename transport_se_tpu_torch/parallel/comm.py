@@ -5,12 +5,14 @@ The sharded subcycle (`parallel/sharded.py`) runs one program per shard.
 It talks to the other shards through two calls, made by every shard in the
 same order:
 
-* `exchange(rank, sends, recvs, like)`: one halo exchange, all of its
-  rounds at once (each round a partial permutation, each shard pair one
-  message).  Shard `rank` sends each (dst, payload) of `sends` and
-  receives, for each (src, nrecv) of `recvs`, the nrecv rows that shard
-  src sends it, shaped, typed and placed as the rows of `like`; returns
-  the received tensors in the order of `recvs`.
+* `exchange_start(rank, sends, recvs, like)`: one halo exchange, all of
+  its rounds at once (each round a partial permutation, each shard pair
+  one message), started.  Shard `rank` sends each (dst, payload) of
+  `sends` and receives, for each (src, nrecv) of `recvs`, the nrecv rows
+  that shard src sends it, shaped, typed and placed as the rows of
+  `like`.  Returns `finish()`, which gives the received tensors in the
+  order of `recvs`; work issued between the two runs beside the exchange
+  where the communicator allows it (DistComm).
 * `min(rank, x)`: the minimum of a 0-d tensor over all shards.
 
 Two implementations:
@@ -24,13 +26,17 @@ Two implementations:
   launches of S shards) runs one thread at a time.  All threads issue
   their work on the device's one current stream, so stream order after
   the barrier puts each payload's producer before its consumer; nothing
-  synchronises with the host.  A failure in
-  any thread aborts the barrier, so the others stop at their next
-  exchange, and `run` re-raises it in the caller: a broken shard fails the
-  run instead of hanging it.
+  synchronises with the host, and nothing runs beside the exchange (it is
+  done when `exchange_start` returns).  A failure in any thread aborts
+  the barrier, so the others stop at their next exchange, and `run`
+  re-raises it in the caller: a broken shard fails the run instead of
+  hanging it.
 * `DistComm()`: one shard per process of an initialised
   `torch.distributed` group (NCCL on cards, gloo on the CPU); an exchange
-  is one `batch_isend_irecv`, the minimum an `all_reduce(MIN)`.
+  is one `batch_isend_irecv` and `finish()` waits for it.  With NCCL the
+  exchange runs on NCCL's own stream, beside the work issued before
+  `finish()`, and `finish()` makes the current stream wait for it.  The
+  minimum is an `all_reduce(MIN)`.
 
 `run(fn)` calls fn(rank) for every shard this process hosts (`ranks`) and
 returns the results in that order.
@@ -60,7 +66,7 @@ class ThreadComm:
     def _wait(self):
         self._barrier.wait()
 
-    def exchange(self, rank, sends, recvs, like):
+    def exchange_start(self, rank, sends, recvs, like):
         self._slots[rank] = dict(sends)
         self._wait()
         got = [self._slots[src].get(rank) for src, _ in recvs]
@@ -70,7 +76,7 @@ class ThreadComm:
                 raise RuntimeError(f"shard {rank}: shard {src} sent "
                                    f"{None if g is None else g.shape[0]} "
                                    f"rows, expected {n}")
-        return got
+        return lambda: got
 
     def min(self, rank, x):
         self._slots[rank] = x
@@ -130,17 +136,20 @@ class DistComm:
         # in which some ranks take no part follow it safely
         dist.barrier()
 
-    def exchange(self, rank, sends, recvs, like):
+    def exchange_start(self, rank, sends, recvs, like):
         dist = self._dist
         got = [like.new_empty((n,) + tuple(like.shape[1:])) for _, n in recvs]
         ops = [dist.P2POp(dist.isend, p.contiguous(), dst)
                for dst, p in sends]
         ops += [dist.P2POp(dist.irecv, g, src)
                 for (src, _), g in zip(recvs, got)]
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
+        reqs = dist.batch_isend_irecv(ops) if ops else []
+
+        def finish():
+            for req in reqs:
                 req.wait()
-        return got
+            return got
+        return finish
 
     def min(self, rank, x):
         y = x.clone()

@@ -17,7 +17,8 @@ one GLL point with one of its local elements.
 * `ShardedDssTables`: one shard's view, with the interface of
   `ops/dss.py DssTables` (`dss_sum`, `dss_sum_t`, `dss_scale_t`,
   `dss_scale_minmax_t`, `minmax_prep`, `neighbor_minmax`, `global_min`),
-  so `model/core.py` runs unchanged against it.  Each halo round's
+  so `model/core.py` runs unchanged against it, plus `dss_sum_t_split`
+  for the gather path's boundary-first split.  Each halo round's
   payload is gathered with `index_select`; the communicator
   (`parallel/comm.py`) takes all rounds of an exchange at once, and what
   arrives is written into the receive slots with `index_copy_`.  Every
@@ -272,7 +273,9 @@ class ShardedDssTables:
     through the banded face DSS K7 (ops/band.py) instead of the partner
     gathers.  bidx: the boundary group (the local elements some peer
     needs), whose duplicate the core computes as the halo payload when
-    overlap_face is set.  Every method takes `plain` (the kernels' plain
+    overlap_face is set.  nbound: the plan's boundary-first split point
+    (0 unless the gather path's overlap order is on), at which the core
+    splits each stage.  Every method takes `plain` (the kernels' plain
     versions, as DssTables)."""
     comm: Any
     rank: int
@@ -285,6 +288,7 @@ class ShardedDssTables:
     face: Any = None
     bidx: Optional[torch.Tensor] = None
     overlap_face: bool = False
+    nbound: int = 0
 
     @staticmethod
     def build(plan: ShardPlan, rank: int, comm, device, face=None,
@@ -298,24 +302,33 @@ class ShardedDssTables:
             part_idx=t(plan.part_idx[rank], np.int64),
             part_mask=t(plan.part_mask[rank], np.bool_),
             nbr=t(plan.nbr[rank], np.int64), face=face, bidx=bidx,
-            overlap_face=overlap_face)
+            overlap_face=overlap_face, nbound=plan.nbound)
 
     # -- halo exchange of whole-element slabs ------------------------------
     def halo(self, x, xb=None):
         """The halo [nhalo, ...] of the local field x [eloc, ...]: the rows
         of the remote elements, slot by slot (unused slots stay zero).
         xb: the boundary group's duplicate [NB, ...], sent in place of x."""
-        out = x.new_zeros((self.nhalo,) + tuple(x.shape[1:]))
+        return self.halo_start(x, xb)()
+
+    def halo_start(self, x, xb=None):
+        """halo(x, xb), started: sends the payload and returns finish(),
+        which gives the halo.  Only the sent rows are read, so in
+        boundary-first order x may be the boundary group alone."""
         sends = [(rnd.dst, xb.index_select(0, rnd.send_idx_b)
                   if xb is not None else x.index_select(0, rnd.send_idx))
                  for rnd in self.rounds if rnd.dst >= 0]
         recv = [rnd for rnd in self.rounds if rnd.src >= 0]
-        got = self.comm.exchange(
+        pending = self.comm.exchange_start(
             self.rank, sends, [(r.src, r.recv_slot.numel()) for r in recv],
             x)
-        for rnd, g in zip(recv, got):
-            out.index_copy_(0, rnd.recv_slot, g)
-        return out
+
+        def finish():
+            out = x.new_zeros((self.nhalo,) + tuple(x.shape[1:]))
+            for rnd, g in zip(recv, pending()):
+                out.index_copy_(0, rnd.recv_slot, g)
+            return out
+        return finish
 
     def halo_extend(self, x):
         """x [eloc, ...] -> cat([x, halo]) [eloc+nhalo, ...]."""
@@ -335,6 +348,17 @@ class ShardedDssTables:
         halo = self.halo(x_t, xb)
         if self.face is not None:
             return _band(plain)(x_t, halo, self.face)
+        return self._dss_from(x_t, halo)
+
+    def dss_sum_t_split(self, xb, xi, pending):
+        """dss_sum_t of cat([xb, xi]) on a shard in boundary-first order
+        (JAX halo.py:333-339).  pending: halo_start(xb), the halo rounds of
+        the boundary group xb [nbound, 16, B] alone, started before the
+        interior xi was computed."""
+        return self._dss_from(torch.cat([xb, xi]), pending())
+
+    def _dss_from(self, x_t, halo):
+        """The gather assembly of x_t [eloc, 16, B] with its halo."""
         E, nn, B = x_t.shape
         xe = torch.cat([x_t, halo]).reshape(-1, B)
         contrib = None

@@ -18,13 +18,20 @@ layout [eloc, 16, q*k] for use_pallas with limiter 8 and no diagnostics,
 else the std layout [eloc, q, k, 4, 4].  The runner carries that layout as
 `io_layout` and converts by it, never by an array's shape.
 
-Overlap, chosen as in the JAX package (`overlap=None`): on for the T
-pipeline; on the face path that is the face+overlap composition (each
-stage's producer runs once more on the boundary group, whose result is the
-halo payload), kept only while the boundary group is at most 25% of a
-shard.  The gather path's overlap form, a boundary-first element order with
-a split stage (JAX core.py:322-350), is not ported (ROADMAP A6): the T
-gather path raises NotImplementedError unless overlap=False.
+Overlap (`overlap=True`) has two forms.  On the face path it is the
+face+overlap composition (each stage's producer runs once more on the
+boundary group, whose result is the halo payload).  On the gather path it
+is a boundary-first element order (the plan's `nbound`) with a split stage
+(JAX core.py:322-350): K1 runs on the boundary group, the halo exchange of
+its output is started, and K1 runs on the interior before the exchange is
+waited for, so a communicator that exchanges beside the device (DistComm
+over NCCL) hides it behind the interior.  `overlap=None` chooses as the
+JAX package does on the face path: on for the T pipeline while the
+boundary group is at most 25% of a shard.  It leaves the gather split off,
+where the JAX package turns it on: with ThreadComm every shard shares one
+stream and nothing can overlap (the split only doubles K1's launches), and
+across cards it is not yet measured (ROADMAP A6(b)).
+Neither form changes a bit of the result.
 """
 
 from __future__ import annotations
@@ -116,8 +123,8 @@ class ShardedRunner:
 def make_sharded_subcycle(m: Model, comm, diagnostics: bool = False,
                           overlap=None) -> ShardedRunner:
     """The sharded subcycle of m over comm.size shards (see the module
-    docstring).  overlap: None (auto), or force the composition on or
-    off."""
+    docstring).  overlap: None (auto), or force the face path's composition
+    or the gather path's split on or off."""
     S = comm.size
     cfg = m.cfg
     use_face = cfg.dss_mode == "face"
@@ -125,12 +132,7 @@ def make_sharded_subcycle(m: Model, comm, diagnostics: bool = False,
     io_layout = "t" if t_layout else "std"
     overlap_auto = overlap is None
     if overlap is None:
-        overlap = t_layout
-    if overlap and not use_face and t_layout:
-        raise NotImplementedError(
-            "the T-layout gather path's overlap form (boundary-first element "
-            "order, split stage; JAX core.py:322-350) is not ported (ROADMAP "
-            "A6): pass overlap=False")
+        overlap = t_layout and use_face
     plan = build_shard_plan(m.grid, S, overlap=bool(overlap and not use_face))
     overlap_face = bool(overlap and use_face)
     if overlap_face and overlap_auto:
