@@ -9,7 +9,10 @@ the result lines):
   2. build the CUDA kernels from csrc/ (one nvcc call, sm_90a)
   3. each T-path kernel against its plain PyTorch version at NE30 shapes
      (E=5400, 35 tracers x 72 levels), f32 and f64, with times: K1-K3 and
-     the face trio K4 (in the five variants the face path takes), K5, K6;
+     the face trio K4, K5, K6; K4 bitwise in its seven launch cases, each
+     with its time against its bound, its registers and spills and its
+     launch shape, then its launch-weighted fraction of its bound over the
+     12 launches of a face subcycle;
      K1 bitwise at each stage kind, and its times at limiter iteration
      caps 1, 2, 4 and 15; K3 bitwise at alg 0 and 2, with its registers,
      shared memory and resident blocks per SM; K5 bitwise on the sphere
@@ -82,7 +85,9 @@ the result lines):
 Then one JSON line of per-kernel results (the launches of K2 from the
 gather run of phase 4, of K10 from the NE30 CLI run of phase 10, of K7
 from the S = 8 run of phase 14, all others from the face run of phase 4;
-each kernel's bound from its call's bytes and operations), the card line,
+each kernel's bound from its call's bytes and operations; K4's times and
+bound are per launch, weighted by its launches of a face subcycle), the
+card line,
 and as the last line {"ok": true, "device": {...}}.
 """
 
@@ -163,6 +168,13 @@ GATHER_COUNTS = {"fused_advect_limit": 18, "laplace_wk_t": 6,
 SHARDED_SUBCYCLES = 4            # one warm-up, three timed
 K7_VARIANTS = ("raw", "scale", "scale+minmax", "scale+minmax+lap")
 SHARDED_S = 8
+# K4's launches a face subcycle by launch case (ops/dss_face.py
+# FACE_CASES): each of the 3 tracer steps runs stage 0 with min/max, stage
+# 1 with min/max and the first Laplacian, stage 2's hyperviscosity input
+# scaled, and stage 2's output with the time average, with min/max on the
+# first two steps
+K4_SUBCYCLE = {"scale": 3, "minmax": 3, "minmax+lap": 3, "avg+minmax": 2,
+               "avg": 1}
 # one face subcycle (phase 17): the 4 face DSS a step and the 6 of the wind
 # basis built with the subcycle function, K1 a stage, K5 once, K6 on
 # stages 0 and 2, K3 once
@@ -302,7 +314,7 @@ def card_line():
 
 # the bool template parameters of the kernels, for the ptxas report
 FLAG_NAMES = {"euler_kernel": ("bih",),
-              "dss_face_kernel": ("avg", "minmax", "lap"),
+              "dss_face_kernel": ("scale", "avg", "minmax", "lap"),
               "dss_band_kernel": ("scale", "minmax", "lap")}
 
 # A kernel's bound: the least time the card could take for the call, the
@@ -371,7 +383,8 @@ def ptxas_usage(log_path):
                 on = [f for f, b in zip(FLAG_NAMES.get(k.group(1), ()),
                                         re.findall(r"Lb([01])", k.group(3)))
                       if b == "1"]
-                # K7's last template argument: the lanes a thread owns
+                # K4's and K7's last template argument: the lanes a
+                # thread owns
                 vec = [f"V{k.group(4)}"] if k.group(4) else []
                 name = (f"{k.group(1)}<"
                         + ",".join(["f32" if k.group(2) == "f" else "f64"]
@@ -603,29 +616,55 @@ def main():
                     f"{shape['rows']} rows, {shape['threads']} threads, "
                     f"{shape['smem_bytes']} B shared a block, "
                     f"{shape['blocks_per_sm']} blocks/SM")
-        # K4 in the face path's five variants, on a stage output with the
-        # state as the time-average input; K5 and K6 on stage-1 bounds
+        # K4 in its seven launch cases on a stage output, with the state as
+        # the time average's input, bit for bit (-0 included); K5 and K6
+        # on stage-1 bounds
         dp1 = (m.dp0col[None, None, :] - dt2 * divp).contiguous()
-        variants = {"scale": {}, "scale+minmax": dict(dp=dp1),
-                    "scale+minmax+lap": dict(dp=dp1, lap=True),
-                    "scale+avg": dict(avg=Qt),
-                    "scale+avg+minmax": dict(avg=Qt, dp=dp1)}
-        for vname, kw in variants.items():
-            if "dp" in kw:
-                def run(plain, kw=kw):
-                    r = tb.dss_scale_minmax_t(out0, rsp16, kw["dp"], nq,
-                                              avg=kw.get("avg"),
-                                              lap=kw.get("lap", False),
-                                              plain=plain)
-                    return r if kw.get("lap") else r[:3]
-            else:
-                def run(plain, kw=kw):
-                    return tb.dss_scale_t(out0, rsp16, avg=kw.get("avg"),
-                                          plain=plain)
-            hold(f"K4 {vname}", lambda: run(False), lambda: run(True),
-                 "dss_face", *dss_cost(E, nq * nk, nk, es, avg="avg" in kw,
-                                       minmax="dp" in kw,
-                                       lap=kw.get("lap", False), part=8))
+        fc = mods["dss_face"]
+        k4 = {}
+        for cname, (flags, scale) in fc.FACE_CASES.items():
+            kw = fc.face_case(cname, rsp16, Qt, dp1, m.met, m.deriv)
+            got = fc.dss_face(out0, tb.face, **kw)
+            want = fc.dss_face_plain(out0, tb.face, **kw)
+            torch.cuda.synchronize()
+            if isinstance(want, torch.Tensor):
+                got, want = (got,), (want,)
+            check(all(torch.equal(bits(torch, a), bits(torch, b))
+                      for a, b in zip(got, want)),
+                  f"{dtype} K4 {cname} is not bitwise equal to its plain "
+                  "version")
+            del got, want
+            hold(f"K4 {cname}", lambda: fc.dss_face(out0, tb.face, **kw),
+                 lambda: fc.dss_face_plain(out0, tb.face, **kw), "dss_face",
+                 *dss_cost(E, nq * nk, nk, es, avg=bool(flags & 1),
+                           minmax=bool(flags & 2), lap=bool(flags & 4),
+                           scale=scale, part=8))
+            k4[cname] = (times["dss_face"][0][-1], times["dss_face"][1][-1],
+                         bounds["dss_face"][-1][0])
+            shape = fc.face_kernel_config(nq * nk, nk, Qt.dtype, flags,
+                                          scale)
+            kname = "dss_face_kernel<" + ",".join(
+                [dtype] + [n for n, on in zip(
+                    FLAG_NAMES["dss_face_kernel"],
+                    (scale, flags & 1, flags & 2, flags & 4)) if on]
+                + [f"V{shape['vec']}"]) + ">"
+            regs = [u for u in ptxas_usage(_build.BUILD_DIR / "build.log")
+                    if u.startswith(kname + " ")]
+            t, _, b = k4[cname]
+            line.append(f"K4 {cname} bitwise, {t:.4f} ms against its bound "
+                        f"{b:.4f} ({b / t:.1%}); "
+                        f"{'; '.join(regs) or 'ptxas report not found'}; "
+                        f"{shape['vec']} lanes a thread, {shape['threads']} "
+                        f"threads, {shape['groups']} lane groups an "
+                        f"element, {shape['smem_bytes']} B shared a block, "
+                        f"{shape['blocks_per_sm']} blocks/SM")
+        k4w = [sum(w * k4[c][i] for c, w in K4_SUBCYCLE.items())
+               for i in range(3)]
+        nw = sum(K4_SUBCYCLE.values())
+        line.append(f"K4 over a face subcycle's {nw} launches ("
+                    + ", ".join(f"{w} {c}" for c, w in K4_SUBCYCLE.items())
+                    + f"): {k4w[0]:.3f} ms against its bound {k4w[2]:.3f} "
+                    f"({k4w[2] / k4w[0]:.1%}), plain {k4w[1]:.3f}")
         hold("K5", lambda: tb.minmax_prep(out0, dp1, nq),
              lambda: tb.minmax_prep(out0, dp1, nq, plain=True),
              "minmax_prep", (F + lv + 2 * EL) * es, EL * 16 * OPS["minmax"])
@@ -708,6 +747,9 @@ def main():
                     ms=statistics.mean(tk), plain_ms=statistics.mean(tp),
                     bound_ms=b_ms, bound_by=bounds[k][0][1],
                     library_ms=libs.get(k))
+        if dtype == "f32":
+            results["dss_face"].update(ms=k4w[0] / nw, plain_ms=k4w[1] / nw,
+                                       bound_ms=k4w[2] / nw)
         say(f"phase 3 kernels vs plain NE{NE} {dtype} (E={E}, L={nq * nk}, "
             f"k={nk}, max_iter={max_iter}, tol {TOL[dtype]:.0e}; times are "
             "means over the stage kinds, algorithms or variants, each the "

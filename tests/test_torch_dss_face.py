@@ -21,6 +21,7 @@ from transport_se_tpu.grid.cubesphere import build_grid
 from transport_se_tpu.ops import dss_face as jdf
 from transport_se_tpu.ops import pallas_dss
 from transport_se_tpu.ops.dss import DssTables as JaxTables
+from transport_se_tpu_torch.k4_variants import TIED_ZEROS
 from transport_se_tpu_torch.ops import dss_face as tdf
 from transport_se_tpu_torch.ops.dss import DssTables
 from transport_se_tpu_torch.ops.euler import metric_pack
@@ -278,6 +279,63 @@ def test_minmax_prep_bitwise_at_the_inline_division_edges(dtype):
     assert np.signbit(tmn.numpy()[0, 1]) and tmn.numpy()[0, 1] == 0
 
 
+@pytest.mark.parametrize("case", ["minmax", "minmax+lap", "avg+minmax"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dss_face_plain_bitwise_at_the_inline_division_edges(dtype, case):
+    """dss_face_plain, the version K4 is held to bit for bit on the card,
+    == the JAX Pallas face kernel (interpret mode) on the ne = 2 sphere
+    whose first five elements carry _division_edges' operands (its tracer
+    mass below the range scaled by 2^-8), where K4's inline division
+    leaves its fast path: the sums, the time average and
+    the bounds bit for bit; the Laplacian to the weak-Laplacian kernel's
+    bound (1e-13 of its max in f64, 1e-5 in f32: the JAX epilogue folds
+    its metric from Dinv and spheremp in the working type,
+    test_torch_euler.py)."""
+    g, _, jf, _, tf, _ = _tables(2)
+    f = np.dtype(dtype)
+    E = g.nelem
+    xe, dpe, nq = _division_edges(dtype, 31)
+    rng = np.random.default_rng(32)
+    x = rng.uniform(-0.5, 2.0, (E, 16, xe.shape[-1])).astype(f)
+    dp = rng.uniform(0.5, 2.0, (E, 16, dpe.shape[-1])).astype(f)
+    x[:len(xe)], dp[:len(dpe)] = xe, dpe
+    # the tracer mass below the range stays below it after rspheremp
+    # (at most 101 at ne = 2)
+    x[1, :, 2:4] *= f.type(2.0 ** -8)
+    # the time average's input: the field itself, so its edge operands
+    # reach the averaged output
+    avg = x.copy() if "avg" in case else None
+    rsp = np.asarray(g.rspheremp).reshape(E, 16).astype(f)
+    lap = case.endswith("lap")
+    la = None if not lap else dict(
+        Dinv=jnp.asarray(np.asarray(g.Dinv, f)),
+        spheremp=jnp.asarray(np.asarray(g.spheremp, f)),
+        deriv=np.asarray(g.deriv, f))
+    want = pallas_dss.dss_face_pallas(
+        jnp.asarray(x), jf.face, rsp=jnp.asarray(rsp), dp=jnp.asarray(dp),
+        interpret=True, lap_arrays=la,
+        avg=None if avg is None else jnp.asarray(avg))
+    tt = torch.float32 if f == np.float32 else torch.float64
+    got = tdf.dss_face_plain(
+        torch.from_numpy(x), tf.face, rsp=torch.from_numpy(rsp),
+        avg=None if avg is None else torch.from_numpy(avg),
+        dp=torch.from_numpy(dp), met=tf.met.to(tt) if lap else None,
+        deriv=tf.deriv.to(tt) if lap else None)
+    assert len(got) == len(want) == (4 if lap else 3)
+    for a, b in zip(got[:3], want[:3]):
+        _same_bits(a, b)
+    # assembled values below the division's range, which K4 divides with
+    # IEEE divisions
+    lo = 2.0 ** (-100 if f == np.float32 else -400)
+    a = np.abs(got[0].numpy())
+    assert ((a > 0) & (a < lo)).any()
+    if lap:
+        w = np.asarray(want[3])
+        tol = 1e-13 if f == np.float64 else 1e-5
+        np.testing.assert_allclose(got[3].numpy(), w, rtol=0,
+                                   atol=tol * np.abs(w).max())
+
+
 def test_minmax_prep_keeps_the_first_of_tied_zeros():
     """Where +0 and -0 tie for a column's min or max, the plain version
     keeps the first point's zero, as the kernel's strict comparisons in
@@ -305,6 +363,29 @@ def test_minmax_prep_keeps_the_first_of_tied_zeros():
     np.testing.assert_array_equal(np.signbit(jmn), [True, True, True, True])
     np.testing.assert_array_equal(np.signbit(jmx), [False, False, False,
                                                     False])
+
+
+@pytest.mark.parametrize("tie", TIED_ZEROS,
+                         ids=[str(sorted(t)) for t in TIED_ZEROS])
+def test_plain_minmax_keeps_the_first_of_tied_zeros(tie):
+    """The plain versions of K4 and K5 take the min and the max over the
+    points in point order with strict comparisons, so the first point's
+    zero wins a tie, as in the kernels, on any device (torch.amin and
+    torch.amax keep the zero their reduction order meets: on the card not
+    always the first point's, k4_variants tie_order)."""
+    first = np.signbit(tie[min(tie)])
+    for dtype in (np.float32, np.float64):
+        x = np.empty((2, 16, 2), dtype)
+        x[:, :, 0], x[:, :, 1] = 1.0, -1.0     # a min tie, a max tie
+        for p, v in tie.items():
+            x[:, p, :] = v
+        dp = np.ones((2, 16, 1), dtype)
+        mn, mx = tdf.minmax_prep(torch.from_numpy(x), torch.from_numpy(dp), 2)
+        assert np.signbit(mn.numpy()[:, 0]).tolist() == [first] * 2
+        assert np.signbit(mx.numpy()[:, 1]).tolist() == [first] * 2
+        # and the same function in dss_face_plain (x/dp with dp = 1)
+        for a, b in zip(tdf._point_minmax(torch.from_numpy(x)), (mn, mx)):
+            _same_bits(a, b.numpy())
 
 
 def _k6_bounds(E, L, dtype, seed):

@@ -750,16 +750,20 @@ def _k5_edge_fields(E, nq, nk, dtype, seed):
     dp = rng.uniform(0.5, 2.0, (E, 16, nk)).astype(f)
     lo = 2.0 ** (-100 if dtype == "f32" else -400)
     hi = 2.0 ** (100 if dtype == "f32" else 400)
-    cols = x.transpose(0, 2, 1).reshape(-1, 16)       # a view: columns
-    n = cols.shape[0]
-    cols[0 % n] = 0.0
-    cols[1 % n, 3:9] = -0.0
-    cols[2 % n] = -0.0
-    cols[2 % n, 7] = 0.0                              # -0 first
-    cols[3 % n, 3], cols[3 % n, 9] = 0.0, -0.0        # the min may tie
-    cols[4 % n] = lo * rng.uniform(0.25, 0.99, 16)
-    cols[5 % n, ::2] = lo
-    cols[5 % n, 1::2] = hi
+    xt = x.transpose(0, 2, 1)                         # a view [E, L, 16]
+    n = E * nq * nk
+
+    def col(c):
+        """column c % n (element-major) of x, a view of its 16 points"""
+        return xt[(c % n) // (nq * nk), (c % n) % (nq * nk)]
+    col(0)[:] = 0.0
+    col(1)[3:9] = -0.0
+    col(2)[:] = -0.0
+    col(2)[7] = 0.0                                   # -0 first
+    col(3)[3], col(3)[9] = 0.0, -0.0                  # the min may tie
+    col(4)[:] = lo * rng.uniform(0.25, 0.99, 16)
+    col(5)[::2] = lo
+    col(5)[1::2] = hi
     if dtype == "f32":
         a, b = np.float32(2.0 ** -20), np.float32(2.0 ** 20)
         dp[-1, :4, 0] = a
@@ -777,7 +781,12 @@ def _k5_edge_fields(E, nq, nk, dtype, seed):
 K5_CASES = {"L15": (5, 3, 5, None), "L28": (4, 7, 4, None),
             "nk1": (6, 3, 1, None), "ne30_lanes": (3, 35, 72, None),
             "nk900": (2, 2, 900, None), "shard": (96, 3, 16, 3),
-            "unaligned": (4, 3, 8, "unaligned")}
+            "unaligned": (4, 3, 8, "unaligned"), "tied_zeros": (3, 2, 4,
+                                                               "ties")}
+# tied_zeros: columns whose min (rest 1) or max (rest -1) ties +0 with -0
+# (k4_variants.TIED_ZEROS), where torch.amin and torch.amax on the card do
+# not always keep the first point's zero (the plain versions reduce in
+# point order)
 
 
 @pytest.mark.parametrize("case", list(K5_CASES))
@@ -790,11 +799,20 @@ def test_k5_edge_shapes_bitwise(cuda, dtype, case):
     xn, dpn = _k5_edge_fields(E, nq, nk, dtype, E + nq * nk)
     x = torch.from_numpy(xn).to(cuda, f)
     dp = torch.from_numpy(dpn).to(cuda, f)
+    if kind == "ties":
+        from transport_se_tpu_torch.k4_variants import TIED_ZEROS
+        xt = x.transpose(1, 2)                # [E, L, 16] columns
+        for i, tie in enumerate(TIED_ZEROS):
+            for c, fill in ((2 * i, 1.0), (2 * i + 1, -1.0)):
+                col = xt[c // (nq * nk), c % (nq * nk)]
+                col.fill_(fill)
+                for p, v in tie.items():
+                    col[p] = v
     if kind == "unaligned":
         buf = torch.empty(x.numel() + 1, dtype=f, device=cuda)
         x = buf[1:].view_as(x).copy_(x)
         assert x.data_ptr() % 16
-    elif kind is not None:
+    elif kind not in (None, "ties"):
         eloc = E // 8
         x, dp = (a[kind * eloc:(kind + 1) * eloc] for a in (x, dp))
     want = dss_face.minmax_prep_plain(x, dp, nq)
@@ -877,3 +895,90 @@ def test_k6_edge_shapes_bitwise(cuda, dtype, case):
         for w in want:
             z = w[w == 0]
             assert torch.signbit(z).any() and (~torch.signbit(z)).any()
+
+
+# K4's edge cases (ne, nq, nk, kind): lane counts that 2 and 4 do not
+# divide (one lane a thread) and that leave a pass partly idle; 4 lanes a
+# thread; one level; one tracer of 72 levels; the NE30 lanes (35 x 72,
+# several lane groups and passes); the ne = 4 sphere; more levels than 48
+# KB of dp records (the large shared-memory launch); fields that are not
+# 16-byte aligned (x and the average); and the inline division's edge
+# operands (_k5_edge_fields) on the ne = 2 and ne = 4 spheres, so that
+# some columns of a warp divide with IEEE divisions and others not, and
+# some elements' dp leave the range; and lanes of -0, of +0 and of both
+# (by element), whose assembled columns tie +0 with -0 for the bounds
+# (the average's input the field itself)
+K4_CASES = {"L15": (2, 3, 5, None), "L28": (2, 7, 4, None),
+            "nk1": (2, 5, 1, None), "nq1_nk72": (2, 1, 72, None),
+            "nq35_nk72": (2, 35, 72, None), "ne4": (4, 3, 8, None),
+            "nk900": (2, 1, 900, None), "unaligned": (2, 4, 8, "unaligned"),
+            "edges_ne2": (2, 3, 4, "edges"), "edges_ne4": (4, 3, 8, "edges"),
+            "tied_zeros": (2, 2, 4, "ties")}
+
+
+@pytest.mark.parametrize("case", list(K4_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k4_edge_shapes_bitwise(cuda, dtype, case):
+    """K4 == dss_face_plain bit for bit (-0 and +0 apart) in all seven
+    launch cases (dss_face.FACE_CASES)."""
+    from transport_se_tpu_torch.grid.cubesphere import build_grid
+    from transport_se_tpu_torch.ops import dss_face
+    ne, nq, nk, kind = K4_CASES[case]
+    f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    g = build_grid(ne, order="raster")
+    E, L = g.nelem, nq * nk
+    ft = _face_tables(ne)
+    if kind == "edges":
+        xn, dpn = _k5_edge_fields(E, nq, nk, dtype, ne * 100 + L)
+        # the tracer mass below the range (column 4) stays below it after
+        # rspheremp (at most 404 at ne = 4)
+        xn.transpose(0, 2, 1)[0, 4] *= xn.dtype.type(2.0 ** -10)
+    else:
+        rng = np.random.default_rng(ne * 100 + L)
+        xn = rng.standard_normal((E, 16, L))
+        dpn = rng.uniform(0.5, 2.0, (E, 16, nk))
+    x = torch.from_numpy(xn).to(cuda, f)
+    dp = torch.from_numpy(dpn).to(cuda, f)
+    avg = torch.from_numpy(np.random.default_rng(L).standard_normal(
+        (E, 16, L))).to(cuda, f)
+    if kind == "ties":
+        x[:, :, 0], x[:, :, 1] = -0.0, 0.0
+        x[::2, :, 2], x[1::2, :, 2] = -0.0, 0.0
+        avg = x.clone()
+    if kind == "unaligned":
+        x, avg = (torch.empty(a.numel() + 1, dtype=f, device=cuda)[1:]
+                  .view_as(a).copy_(a) for a in (x, avg))
+        assert x.data_ptr() % 16 and avg.data_ptr() % 16
+    met = euler.metric_pack(**{k: torch.tensor(np.asarray(getattr(g, k)))
+                               for k in ("Dinv", "metdet", "rmetdet",
+                                         "spheremp")}).to(cuda, f)
+    rsp = torch.tensor(np.asarray(g.rspheremp).reshape(E, 16)).to(cuda, f)
+    deriv = torch.tensor(np.asarray(g.deriv)).to(cuda, f)
+    for name in dss_face.FACE_CASES:
+        kw = dss_face.face_case(name, rsp, avg, dp, met, deriv)
+        want = dss_face.dss_face_plain(x, ft, **kw)
+        counters.reset()
+        got = dss_face.dss_face(x, ft, **kw)
+        assert counters.snapshot()["dss_face"] == 1
+        if isinstance(want, torch.Tensor):
+            got, want = (got,), (want,)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b)), (
+                case, name, (a - b).abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k4_refuses_more_levels_than_shared_memory(cuda, dtype):
+    """With min/max, K4's prologue holds dp and its reciprocal for every
+    (point, level) of an element: past 227 KB a block the launch is
+    refused and the wrapper raises (there is no fallback)."""
+    from transport_se_tpu_torch.ops import dss_face
+    f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    ft = _face_tables(2)
+    nk = 227 * 1024 // (32 * (4 if dtype == "f32" else 8)) + 1
+    x = torch.ones(24, 16, nk, dtype=f, device=cuda)
+    rsp = torch.ones(24, 16, dtype=f, device=cuda)
+    dp = torch.ones(24, 16, nk, dtype=f, device=cuda)
+    with pytest.raises(RuntimeError, match="dss_face"):
+        dss_face.dss_face(x, ft, rsp=rsp, dp=dp)

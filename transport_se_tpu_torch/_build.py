@@ -56,6 +56,9 @@ ENTRIES = {
     "tse_ppm_config": [I, I, P],
     # x part rsp avg dp met deriv | out qmin qmax lap | E L nk flags | stream
     "tse_dss_face": [P] * 11 + [I, I, I, I, P],
+    # L nk flags scale | out[5]: K4's lanes a thread, threads, lane groups an
+    # element, shared bytes per block, blocks/SM
+    "tse_dss_face_config": [I, I, I, I, P],
     # x dp | qmin qmax | E L nk | stream
     "tse_minmax_prep": [P] * 4 + [I, I, I, P],
     # qmin qmax nbr | gmin gmax | E L | stream

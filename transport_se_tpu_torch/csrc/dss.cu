@@ -1,33 +1,81 @@
 // Face DSS with epilogues (K4), limiter-bound prep (K5) and neighbour
 // min/max (K6) for sm_90a.
 //
-// Replaces transport_se_tpu/ops/pallas_dss.py:_dss_face_kernel (reached
-// through dss_face_pallas), :_minmax_kernel (through minmax_prep_pallas)
-// and :_nbr_minmax_kernel (through neighbor_minmax_pallas).  Plain PyTorch
-// versions and the tables: ops/dss_face.py.
+// Replaces transport_se_tpu/ops/pallas_dss.py:73 _dss_face_kernel
+// (reached through dss_face_pallas :214), :387 _minmax_kernel (through
+// minmax_prep_pallas :402) and :442 _nbr_minmax_kernel (through
+// neighbor_minmax_pallas :519).  Plain PyTorch versions and the tables:
+// ops/dss_face.py.
 //
 // Layout: T layout [E, 16, L], lane = tracer*nk + level, elements in raster
 // face order; level fields [E, 16, nk]; bounds [E, L]; metric pack
 // [E, 10, 16] (ops/euler.py MET_ROWS, rows 7-9 the folded Laplacian metric).
 //
 // Bound on the H100: device-memory bytes.  All three kernels do a few
-// operations per byte.  K4 reads the field once and writes it once (plus
-// avg read, or the Laplacian written, in its fused variants: about 2.6 GB
-// per launch at NE30 f32, ~0.8 ms); K5 reads it and dp once and writes
-// two [E, L] bounds (~0.30 ms); K6 moves two [E, L] bound arrays in and
-// out (~0.07 ms).
+// operations per byte.  K4 reads the field once and writes it once, plus
+// the partner table and rspheremp, plus per launch case the average field
+// read, dp read and the two [E, L] bounds written, the metric pack read and
+// the Laplacian written (chip_smoke.py dss_cost).  At NE30 f32 (E = 5400,
+// 35 x 72 lanes) at 3.35 TB/s: raw 0.521 ms, scale 0.521, +avg 0.781,
+// +min/max 0.561, +avg+min/max 0.821, +min/max+Laplacian 0.822,
+// +avg+min/max+Laplacian 1.082; twice that in f64.  K5 reads the field and
+// dp once and writes two [E, L] bounds (~0.30 ms); K6 moves two [E, L]
+// bound arrays in and out (~0.07 ms).
 //
-// Design, against the TPU form: the Pallas kernel streams blocks of whole
+// K4, against the TPU form: the Pallas kernel streams blocks of whole
 // element rows of one face through VMEM, takes the in-face partners as
 // shifted slices of the block, and DMAs seam ghost strips (with zero or
-// +-inf padding rows for the cube vertices) beside each block.  Here K4
-// gives a thread one (element, lane) column, as K1 does, and reads each
-// partner value straight from device memory through a host-built table,
+// +-inf padding rows for the cube vertices) beside each block.  None of
+// that carries over.  Every partner comes through a host-built table,
 // [E, 16, 3] role-ordered partner slots (x-edge partner, corner diagonal,
-// y-edge partner; -1 where absent).  A block is one element's 128
-// adjacent lanes, so every partner read of a warp is one coalesced row
-// segment; the partner rows are other blocks' own rows and mostly hit L2.
-// No row blocks, ghost strips, lane chunks or padding.
+// y-edge partner; -1 where absent), and a block takes one element and a
+// group of its lanes, in K7's form (band.cu):
+//   - a prologue computes once into shared memory what depends only on
+//     the element: the 48 partner slots resolved to row pointers into x
+//     (null: absent), rspheremp, the metric rows s00, s01, s11 and the
+//     derivative matrix, and for each (point, level) dp with its
+//     reciprocal for the inline division.  Whether every dp of the element
+//     lies in the division's range is reduced by the prologue's barrier
+//     (__syncthreads_or);
+//   - each thread owns V adjacent lanes (vector loads and stores where L,
+//     nk and the pointers allow, else V = 1), keeps their 16 points in
+//     registers, and a block walks its lanes in passes of threads*V lanes,
+//     so one prologue serves several passes.  A partner row is another
+//     block's own row: with the grid element-major, the +-y partner is
+//     ne elements away, well inside a resident wave, and mostly hits L2;
+//   - q = out/dp runs inline (tse::div_by with the prologue's
+//     reciprocal), the IEEE quotient while out lies in common.cuh's range
+//     (or is +0) and dp does; a thread whose out leaves it, or a block
+//     whose dp does, divides with IEEE divisions (out is still in
+//     registers, so nothing is read again);
+//   - every output is stored with the evict-first hint, which bounds the
+//     registers nvcc spends on loads in flight and keeps the outputs from
+//     pushing partner rows out of L2.
+// The launch shape (V, threads, resident blocks, passes) is set per dtype
+// and launch case in Shape below (k4_variants.py measures the choices).
+// Limits: with min/max the prologue holds 16 nk dp records, so a block
+// needs 128 nk (f32) / 256 nk (f64) bytes of shared memory beside about
+// 1 KB of tables: nk <= 1810 / 904 fit the 227 KB a block may have;
+// beyond that the launch returns an error and the wrapper raises.
+// Measured at NE30 f32 on an NVIDIA H100 80GB HBM3 at 700 W
+// (k4_variants, the first form built from another tree in the same call):
+// its first form, a thread per (element, lane) column with scalar loads
+// of every partner, avg and dp value and 16 IEEE divisions per column,
+// took 16.0 ms over a face subcycle's 12 launches, 51% of their bound;
+// this form 10.5 ms, 77% (raw 0.61 against 0.83 ms, +min/max 0.78
+// against 1.23, +min/max+Laplacian 1.09 against 1.91).  Of its choices,
+// the IEEE division throughout cost 10-14% in the min/max cases, plain
+// stores 10-18% (1.9x in f64, with spills), a lane-group-major grid
+// 5-10%, one lane a thread 2-7%.
+//
+// K4 adds the terms of each slot in the DSS_STORE order of the Pallas
+// kernel, (x + (S_x + d)) + S_y on the i = 0, 3 planes and x + S_y on the
+// others, with absent terms as +0 (K7 adds ((x + S_x) + S_y) + d: the two
+// JAX assemblies differ, and the port follows each).  The time average is
+// (avg + 2 res) * (1/3), the min and the max run over the points in order
+// with strict comparisons (the first of tied zeros kept), and the
+// Laplacian epilogue is the shared lap_wk of common.cuh.  Built with
+// --fmad=false, so kernel and plain version agree to the last bit.
 //
 // K6 keeps the Pallas kernel's separable form and its march over a face's
 // rows (see nbr_minmax_kernel): its first form, a thread per (element,
@@ -44,97 +92,222 @@
 // dp and its reciprocal into shared memory once per element and group,
 // each thread owns 2 adjacent lanes in vector accesses, and q = x/dp runs
 // inline (see minmax_kernel).
-//
-// K4 adds the terms of each slot in the DSS_STORE order of the Pallas
-// kernel, (x + (S_x + d)) + S_y on the i = 0, 3 planes and x + S_y on the
-// others, with absent terms as zeros; the Laplacian epilogue is the
-// shared lap_wk of common.cuh.  Built with --fmad=false, so kernel and
-// plain version agree to the last bit.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kSmemMax = 227 * 1024;
 
+// dp and its reciprocal at one (point, level)
 template <typename T>
-__device__ __forceinline__ T partner(const T* __restrict__ x, int64_t slot,
-                                     int L, int lane) {
-  return slot >= 0 ? x[slot * L + lane] : T(0);
+struct DpRecip {
+  T d, y;
+};
+
+// K4's launch shape per launch case: index 0 raw (no rspheremp), 1 scale,
+// 2 +avg, 3 +min/max, 4 +avg+min/max, 5 +min/max+Laplacian,
+// 6 +avg+min/max+Laplacian (kFaceCase).  vec: lanes a thread owns (1, 2
+// or 4); threads a block; min_blocks: resident blocks per SM asked of
+// __launch_bounds__; passes: lane passes a block makes (more passes, fewer
+// blocks and prologues).  Measured at NE30 with k4_variants in two calls
+// on an NVIDIA H100 80GB HBM3 at 700 W, each choice against its
+// neighbours in the same call: with min/max one pass a block (a prologue a
+// pass) was 12-33% slower in f32 than four; f32's avg+min/max and
+// Laplacian cases gained 3-5% from 256 threads held to 128 registers (2
+// lanes a thread, no spill), and its Laplacian cases 4% from 2 lanes a
+// thread over one; f64's avg+min/max gained 5% from one lane a thread (2
+// spill 32 B at 128 registers); 4 lanes a thread in f64 took 1.6-1.9x.
+template <typename T>
+struct Shape;
+template <>
+struct Shape<float> {
+  static constexpr int vec[7] = {4, 4, 4, 2, 2, 2, 2};
+  static constexpr int threads[7] = {128, 128, 128, 128, 256, 256, 256};
+  static constexpr int min_blocks[7] = {1, 1, 1, 1, 2, 2, 2};
+  static constexpr int passes[7] = {1, 1, 1, 4, 4, 4, 4};
+};
+template <>
+struct Shape<double> {
+  static constexpr int vec[7] = {2, 2, 2, 2, 1, 1, 1};
+  static constexpr int threads[7] = {128, 128, 128, 256, 256, 256, 256};
+  static constexpr int min_blocks[7] = {1, 1, 1, 2, 2, 2, 2};
+  static constexpr int passes[7] = {1, 1, 1, 2, 2, 2, 2};
+};
+// measuring switches (k4_variants): q = out/dp by the IEEE division
+// throughout; outputs stored with the evict-first hint (st.global.cs);
+// the grid lane-group-major (all elements of lane group 0 first) instead
+// of element-major
+constexpr bool kFaceIeeeDivide = false;
+constexpr bool kFaceStreamStores = true;
+constexpr bool kFaceLaneMajor = false;
+
+// the index of a launch case in Shape's tables
+template <bool SCALE, bool AVG, bool MINMAX, bool LAP>
+constexpr int kFaceCase = LAP      ? (AVG ? 6 : 5)
+                          : MINMAX ? (AVG ? 4 : 3)
+                          : AVG    ? 2
+                          : SCALE  ? 1
+                                   : 0;
+
+// a partner row's V lanes, +0 where the partner is absent (row == null;
+// the same for the whole block, so no lane diverges)
+template <int V, typename T>
+__device__ __forceinline__ void partner_v(const T* row, int lane, T (&r)[V]) {
+  if (row != nullptr) {
+    tse::load_v<V>(row + lane, r);
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) r[v] = T(0);
+  }
 }
 
-template <typename T, bool AVG, bool MINMAX, bool LAP>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, bool SCALE, bool AVG, bool MINMAX, bool LAP, int V>
+__global__ void __launch_bounds__(
+    Shape<T>::threads[kFaceCase<SCALE, AVG, MINMAX, LAP>],
+    Shape<T>::min_blocks[kFaceCase<SCALE, AVG, MINMAX, LAP>])
 dss_face_kernel(const T* __restrict__ x, const int64_t* __restrict__ part,
                 const T* __restrict__ rsp, const T* __restrict__ avg,
                 const T* __restrict__ dp, const T* __restrict__ met,
                 const T* __restrict__ deriv, T* __restrict__ out,
                 T* __restrict__ qmin, T* __restrict__ qmax,
-                T* __restrict__ lap, int L, int nk) {
-  __shared__ int64_t sP[48];
+                T* __restrict__ lap, int L, int nk, int groups, int nelem) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ const T* sP[48];
   __shared__ T sR[16];
   __shared__ T sS[48];
   __shared__ T sD[16];
-  const int64_t e = blockIdx.x;
-  for (int i = threadIdx.x; i < 48; i += blockDim.x) sP[i] = part[e * 48 + i];
-  if (rsp != nullptr && threadIdx.x < 16)
-    sR[threadIdx.x] = rsp[e * 16 + threadIdx.x];
-  if (LAP) {
-    for (int i = threadIdx.x; i < 48; i += blockDim.x)
-      sS[i] = met[e * 160 + 112 + i];
-    if (threadIdx.x < 16) sD[threadIdx.x] = deriv[threadIdx.x];
+  DpRecip<T>* sQ = reinterpret_cast<DpRecip<T>*>(smem);  // [16][nk]
+  int64_t e;
+  int g;
+  if (kFaceLaneMajor) {
+    g = int(blockIdx.x / unsigned(nelem));
+    e = int64_t(blockIdx.x) - int64_t(g) * nelem;
+  } else {
+    e = blockIdx.x / unsigned(groups);
+    g = int(blockIdx.x - e * groups);
   }
-  __syncthreads();
-  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const int64_t base = e * 16 * L + lane;
+  const int tid = threadIdx.x;
+  const int bd = blockDim.x;
 
-  T res[16];
-#pragma unroll
-  for (int p = 0; p < 16; ++p) {
-    const int i = p >> 2;
-    const T xp = x[base + int64_t(p) * L];
-    const T sy = partner(x, sP[p * 3 + 2], L, lane);
-    if (i == 0 || i == 3) {
-      const T sx = partner(x, sP[p * 3], L, lane);
-      const T d = partner(x, sP[p * 3 + 1], L, lane);
-      res[p] = (xp + (sx + d)) + sy;
-    } else {
-      res[p] = xp + sy;
+  // ---- prologue: what depends on the element alone ----------------------
+  for (int i = tid; i < 48; i += bd) {
+    const int64_t s = part[e * 48 + i];
+    sP[i] = s < 0 ? nullptr : x + s * L;
+  }
+  if (SCALE && tid < 16) sR[tid] = rsp[e * 16 + tid];
+  if (LAP) {
+    // rows 7-9 of the metric pack: the folded metric s00, s01, s11
+    for (int i = tid; i < 48; i += bd) sS[i] = met[e * 160 + 112 + i];
+    if (tid < 16) sD[tid] = deriv[tid];
+  }
+  bool slow_dp = false;
+  if (MINMAX) {
+    const T* dpe = dp + e * 16 * nk;
+    for (int i = tid; i < 16 * nk; i += bd) {
+      const T d = dpe[i];
+      slow_dp |= tse::outside(d, tse::Bits<T>::d_lo, tse::Bits<T>::d_hi);
+      sQ[i] = {d, tse::recip(d)};
     }
   }
-  if (rsp != nullptr) {
+  // a dp of the element outside the division's range: IEEE divisions
+  slow_dp = __syncthreads_or(slow_dp) != 0 || kFaceIeeeDivide;
+
+  // ---- V adjacent lanes a thread, in passes of bd*V lanes ---------------
+  // the time average's 1/3, as dss_face_pallas evaluates its "/ 3" (XLA
+  // folds a division by a constant into a product with its reciprocal)
+  const T third = T(1) / T(3);
+  const T* __restrict__ xe = x + e * 16 * L;
+  for (int lane = (g * bd + tid) * V; lane < L; lane += groups * bd * V) {
+    T r[16][V];
 #pragma unroll
-    for (int p = 0; p < 16; ++p) res[p] = res[p] * sR[p];
-  }
-  if (AVG) {
-    // the fused qdp_time_avg, times 1/3 as dss_face_pallas evaluates its
-    // "/ 3" (XLA folds a division by a constant into its reciprocal)
-    const T third = T(1) / T(3);
+    for (int p = 0; p < 16; ++p) {
+      T xp[V], sy[V];
+      tse::load_v<V>(xe + int64_t(p) * L + lane, xp);
+      partner_v<V>(sP[p * 3 + 2], lane, sy);
+      if ((p >> 2) == 0 || (p >> 2) == 3) {
+        T sx[V], d[V];
+        partner_v<V>(sP[p * 3], lane, sx);
+        partner_v<V>(sP[p * 3 + 1], lane, d);
+#pragma unroll
+        for (int v = 0; v < V; ++v) r[p][v] = (xp[v] + (sx[v] + d[v])) + sy[v];
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) r[p][v] = xp[v] + sy[v];
+      }
+      if (SCALE) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) r[p][v] = r[p][v] * sR[p];
+      }
+      if (AVG) {
+        T a[V];
+        tse::load_v<V>(avg + e * 16 * L + int64_t(p) * L + lane, a);
+#pragma unroll
+        for (int v = 0; v < V; ++v) r[p][v] = (a[v] + T(2) * r[p][v]) * third;
+      }
+    }
+    // stored after every load of the pass: the partner pointers come from
+    // shared memory, so nvcc cannot move their loads above a store to out
 #pragma unroll
     for (int p = 0; p < 16; ++p)
-      res[p] = (avg[base + int64_t(p) * L] + T(2) * res[p]) * third;
-  }
+      tse::store_v<kFaceStreamStores, V>(out + e * 16 * L + int64_t(p) * L +
+                                             lane,
+                                         r[p]);
+    if (!MINMAX) continue;
+
+    // q = out/dp in place of out; lanes lane..lane+V-1 hold levels
+    // lev..lev+V-1 (V divides nk and lane)
+    const int lev = lane % nk;
+    bool slow = slow_dp;
 #pragma unroll
-  for (int p = 0; p < 16; ++p) out[base + int64_t(p) * L] = res[p];
-  if (MINMAX) {
-    const int64_t lbase = e * 16 * nk + lane % nk;
-    T q[16];
+    for (int p = 0; p < 16; ++p)
 #pragma unroll
-    for (int p = 0; p < 16; ++p) q[p] = res[p] / dp[lbase + p * nk];
-    T mn = q[0], mx = q[0];
+      for (int v = 0; v < V; ++v)
+        slow |= tse::outside_abs(r[p][v], tse::Bits<T>::q_lo,
+                                 tse::Bits<T>::q_hi);
+    if (!slow) {
 #pragma unroll
-    for (int p = 1; p < 16; ++p) {
-      mn = q[p] < mn ? q[p] : mn;
-      mx = q[p] > mx ? q[p] : mx;
+      for (int p = 0; p < 16; ++p)
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const DpRecip<T> a = sQ[p * nk + lev + v];
+          r[p][v] = tse::div_by(r[p][v], a.d, a.y);
+        }
+    } else {
+#pragma unroll
+      for (int p = 0; p < 16; ++p)
+#pragma unroll
+        for (int v = 0; v < V; ++v) r[p][v] = r[p][v] / sQ[p * nk + lev + v].d;
     }
-    qmin[e * L + lane] = mn;
-    qmax[e * L + lane] = mx;
-    if (LAP) {
-      T w[16];
-      tse::lap_wk(sD, q, sS, sS + 16, sS + 32, w);
+    T mn[V], mx[V];
 #pragma unroll
-      for (int p = 0; p < 16; ++p) lap[base + int64_t(p) * L] = w[p];
+    for (int v = 0; v < V; ++v) {
+      mn[v] = r[0][v];
+      mx[v] = r[0][v];
+    }
+#pragma unroll
+    for (int p = 1; p < 16; ++p)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        mn[v] = r[p][v] < mn[v] ? r[p][v] : mn[v];
+        mx[v] = r[p][v] > mx[v] ? r[p][v] : mx[v];
+      }
+    tse::store_v<kFaceStreamStores, V>(qmin + e * L + lane, mn);
+    tse::store_v<kFaceStreamStores, V>(qmax + e * L + lane, mx);
+    if (LAP) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        T q[16], w[16];
+#pragma unroll
+        for (int p = 0; p < 16; ++p) q[p] = r[p][v];
+        tse::lap_wk(sD, q, sS, sS + 16, sS + 32, w);
+#pragma unroll
+        for (int p = 0; p < 16; ++p) r[p][v] = w[p];
+      }
+#pragma unroll
+      for (int p = 0; p < 16; ++p)
+        tse::store_v<kFaceStreamStores, V>(
+            lap + e * 16 * L + int64_t(p) * L + lane, r[p]);
     }
   }
 }
@@ -150,13 +323,6 @@ constexpr int kMinmaxPasses = 4;
 // throughout; the bounds stored with the evict-first hint (st.global.cs)
 constexpr bool kMinmaxIeeeDivide = false;
 constexpr bool kMinmaxStreamStores = true;
-constexpr int kSmemMax = 227 * 1024;
-
-// dp and its reciprocal at one (point, level)
-template <typename T>
-struct DpRecip {
-  T d, y;
-};
 
 // A block takes one element and a group of its lanes; a prologue puts the
 // element's dp [16, nk] and its reciprocals into shared memory, then each
@@ -474,39 +640,99 @@ nbr_minmax_kernel(const T* __restrict__ qmin, const T* __restrict__ qmax,
   }
 }
 
-// flags: 1 avg, 2 min/max of out/dp, 4 Laplacian of out/dp (needs 2)
+template <int V, typename T>
+bool aligned(const T* p) {
+  return reinterpret_cast<uintptr_t>(p) % (V * sizeof(T)) == 0;
+}
+
 template <typename T>
-int launch_dss_face(const void* x, const void* part, const void* rsp,
-                    const void* avg, const void* dp, const void* met,
-                    const void* deriv, void* out, void* qmin, void* qmax,
-                    void* lap, int E, int L, int nk, int flags,
-                    void* stream) {
-  if (E <= 0 || L <= 0 || nk <= 0 || flags < 0 || flags > 7 ||
-      ((flags & 4) && !(flags & 2)) || ((flags & 3) && rsp == nullptr))
+struct FaceArgs {
+  const T* x;
+  const int64_t* part;
+  const T *rsp, *avg, *dp, *met, *deriv;
+  T *out, *qmin, *qmax, *lap;
+  int E, L, nk;
+  cudaStream_t st;
+};
+
+// Launches K4's case at lane width V; with config, fills config[5] =
+// {lanes a thread, threads a block, lane groups an element, dynamic shared
+// bytes a block, resident blocks per SM} instead
+template <typename T, bool SCALE, bool AVG, bool MINMAX, bool LAP, int V>
+int run_face(const FaceArgs<T>& a, int* config) {
+  constexpr int vi = kFaceCase<SCALE, AVG, MINMAX, LAP>;
+  constexpr int threads = Shape<T>::threads[vi];
+  auto kernel = dss_face_kernel<T, SCALE, AVG, MINMAX, LAP, V>;
+  const size_t smem = MINMAX ? size_t(16) * a.nk * sizeof(DpRecip<T>) : 0;
+  if (smem > size_t(kSmemMax)) return int(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+  }
+  const int chunks = (a.L + threads * V - 1) / (threads * V);
+  const int passes = Shape<T>::passes[vi];
+  const int groups = (chunks + passes - 1) / passes;
+  if (config != nullptr) {
+    int resident = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, kernel, threads, smem);
+    if (err != cudaSuccess) return int(err);
+    config[0] = V;
+    config[1] = threads;
+    config[2] = groups;
+    config[3] = int(smem);
+    config[4] = resident;
+    return 0;
+  }
+  const long long blocks = (long long)a.E * groups;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  kernel<<<unsigned(blocks), threads, smem, a.st>>>(
+      a.x, a.part, a.rsp, a.avg, a.dp, a.met, a.deriv, a.out, a.qmin, a.qmax,
+      a.lap, a.L, a.nk, groups, a.E);
+  return int(cudaGetLastError());
+}
+
+// The case's vector width where L, nk and every field pointer allow it,
+// else one lane a thread
+template <typename T, bool SCALE, bool AVG, bool MINMAX, bool LAP>
+int run_face_case(const FaceArgs<T>& a, int* config) {
+  constexpr int V = Shape<T>::vec[kFaceCase<SCALE, AVG, MINMAX, LAP>];
+  const bool vec = V > 1 && a.L % V == 0 && (!MINMAX || a.nk % V == 0) &&
+                   aligned<V>(a.x) && aligned<V>(a.out) &&
+                   (!AVG || aligned<V>(a.avg)) &&
+                   (!MINMAX || (aligned<V>(a.qmin) && aligned<V>(a.qmax))) &&
+                   (!LAP || aligned<V>(a.lap));
+  if (vec) return run_face<T, SCALE, AVG, MINMAX, LAP, V>(a, config);
+  return run_face<T, SCALE, AVG, MINMAX, LAP, 1>(a, config);
+}
+
+// flags: 1 avg, 2 min/max of out/dp, 4 Laplacian of out/dp (needs 2);
+// flags 0 scales by rspheremp where rsp is given (scale), the others need
+// it.  With config, the launch shape of that case (null pointers: aligned
+// fields)
+template <typename T>
+int launch_dss_face(const FaceArgs<T>& a, int flags, bool scale,
+                    int* config) {
+  if (a.E <= 0 || a.L <= 0 || a.nk <= 0 || (flags != 0 && !scale))
     return int(cudaErrorInvalidValue);
-  const dim3 grid(E, (L + kThreads - 1) / kThreads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DSS_ARGS                                                            \
-  (const T*)x, (const int64_t*)part, (const T*)rsp, (const T*)avg,          \
-      (const T*)dp, (const T*)met, (const T*)deriv, (T*)out, (T*)qmin,      \
-      (T*)qmax, (T*)lap, L, nk
-#define DSS_CASE(F, A, M, P)                                                \
-  case F:                                                                   \
-    dss_face_kernel<T, A, M, P><<<grid, kThreads, 0, st>>>(DSS_ARGS);       \
-    break;
   switch (flags) {
-    DSS_CASE(0, false, false, false)
-    DSS_CASE(1, true, false, false)
-    DSS_CASE(2, false, true, false)
-    DSS_CASE(3, true, true, false)
-    DSS_CASE(6, false, true, true)
-    DSS_CASE(7, true, true, true)
+    case 0:
+      return scale ? run_face_case<T, true, false, false, false>(a, config)
+                   : run_face_case<T, false, false, false, false>(a, config);
+    case 1:
+      return run_face_case<T, true, true, false, false>(a, config);
+    case 2:
+      return run_face_case<T, true, false, true, false>(a, config);
+    case 3:
+      return run_face_case<T, true, true, true, false>(a, config);
+    case 6:
+      return run_face_case<T, true, false, true, true>(a, config);
+    case 7:
+      return run_face_case<T, true, true, true, true>(a, config);
     default:
       return int(cudaErrorInvalidValue);
   }
-#undef DSS_CASE
-#undef DSS_ARGS
-  return int(cudaGetLastError());
 }
 
 // Launches K5 at lane width V; with config, fills config[5] = {lanes a
@@ -543,11 +769,6 @@ int run_minmax(const T* x, const T* dp, T* qmin, T* qmax, int E, int L,
   kernel<<<unsigned(blocks), threads, smem, st>>>(x, dp, qmin, qmax, L, nk,
                                                   groups);
   return int(cudaGetLastError());
-}
-
-template <int V, typename T>
-bool aligned(const T* p) {
-  return reinterpret_cast<uintptr_t>(p) % (V * sizeof(T)) == 0;
 }
 
 // The vector width where L, nk and the pointers allow it, else one lane a
@@ -639,8 +860,24 @@ int launch_nbr_minmax(const void* qmin, const void* qmax, const void* nbr,
       const void* dp, const void* met, const void* deriv, void* out,         \
       void* qmin, void* qmax, void* lap, int E, int L, int nk, int flags,    \
       void* stream) {                                                        \
-    return launch_dss_face<T>(x, part, rsp, avg, dp, met, deriv, out, qmin,  \
-                              qmax, lap, E, L, nk, flags, stream);           \
+    const FaceArgs<T> a{(const T*)x,     (const int64_t*)part,             \
+                        (const T*)rsp,   (const T*)avg,                    \
+                        (const T*)dp,    (const T*)met,                    \
+                        (const T*)deriv, (T*)out,                          \
+                        (T*)qmin,        (T*)qmax,                         \
+                        (T*)lap,         E,                                \
+                        L,               nk,                               \
+                        (cudaStream_t)stream};                             \
+    return launch_dss_face<T>(a, flags, rsp != nullptr, nullptr);            \
+  }                                                                          \
+  /* out[5]: K4's launch shape of case (flags, scale) for aligned fields */  \
+  extern "C" int tse_dss_face_config_##SUFFIX(int L, int nk, int flags,      \
+                                              int scale, int* out) {         \
+    FaceArgs<T> a{};                                                         \
+    a.E = 1;                                                                 \
+    a.L = L;                                                                 \
+    a.nk = nk;                                                               \
+    return launch_dss_face<T>(a, flags, scale != 0, out);                    \
   }                                                                          \
   extern "C" int tse_minmax_prep_##SUFFIX(const void* x, const void* dp,     \
                                           void* qmin, void* qmax, int E,     \

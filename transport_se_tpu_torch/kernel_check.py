@@ -10,8 +10,8 @@ from the repo root, on a CUDA device; under a checker, e.g.
     compute-sanitizer --tool racecheck python -m transport_se_tpu_torch.kernel_check --only K3
 
 It builds an NE8 face model in f32 and in f64 (perf_config), and launches
-on each: K1 at its three stage kinds, K2, K3 at alg 0 and 2, K4 in the five
-variants of the face path, K5, K6, then one face subcycle; K7 in its four
+on each: K1 at its three stage kinds, K2, K3 at alg 0 and 2, K4 in its
+seven launch cases, K5, K6, then one face subcycle; K7 in its four
 variants on every shard of an S = 2 band shard set; K10 on the NE8 std
 path's stage 0.  --only K3 launches K3 alone (both models).  --builds N
 first builds the NE30 f32 face model, its wind basis (K4) and its limiter
@@ -33,7 +33,7 @@ from .k3_variants import remap_args
 from .k7_variants import halo_rows, shard
 from .model import core
 from .model.wind_basis import build_wind_basis
-from .ops import band, euler, limiter, remap
+from .ops import band, dss_face, euler, limiter, remap
 
 
 def sync(what):
@@ -65,12 +65,10 @@ def check_face(dtype, dev, ne=8):
     sync(f"{dtype} K2")
     check_k3(dtype, dev, ne)
     dp = stages[1][0][2]
-    tb.dss_scale_t(x, rsp16)
-    tb.dss_scale_t(x, rsp16, avg=x)
-    tb.dss_scale_minmax_t(x, rsp16, dp, nq)
-    tb.dss_scale_minmax_t(x, rsp16, dp, nq, lap=True)
-    tb.dss_scale_minmax_t(x, rsp16, dp, nq, avg=x)
-    sync(f"{dtype} K4 scale, +avg, +min/max, +min/max+lap, +avg+min/max")
+    for name in dss_face.FACE_CASES:
+        dss_face.dss_face(x, tb.face, **dss_face.face_case(
+            name, rsp16, x, dp, m.met, m.deriv))
+    sync(f"{dtype} K4 " + ", ".join(dss_face.FACE_CASES))
     mn, mx = tb.minmax_prep(x, dp, nq)
     sync(f"{dtype} K5")
     tb.neighbor_minmax(mn, mx)

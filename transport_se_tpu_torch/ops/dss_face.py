@@ -270,6 +270,19 @@ def _q_minmax(x, dp, nq):
     return q.amin(dim=1).reshape(E, L), q.amax(dim=1).reshape(E, L)
 
 
+def _point_minmax(q):
+    """Min and max of q [E, 16, ...] over its points (dim 1) by strict
+    comparisons in point order, as K4 and K5 take them: of equal values
+    (+0 and -0) the first point's is kept.  torch.amin and torch.amax
+    leave that choice to the order of their reduction, which on the card
+    is not the points' order."""
+    mn = mx = q[:, 0]
+    for p in range(1, q.shape[1]):
+        mn = torch.where(q[:, p] < mn, q[:, p], mn)
+        mx = torch.where(q[:, p] > mx, q[:, p], mx)
+    return mn, mx
+
+
 def dss_face_plain(x, ft: FaceTables, rsp=None, avg=None, dp=None,
                    met=None, deriv=None):
     """Plain PyTorch version of the face DSS; see dss_face."""
@@ -296,7 +309,7 @@ def dss_face_plain(x, ft: FaceTables, rsp=None, avg=None, dp=None,
         return res
     nq = L // dp.shape[-1]
     q = (res.reshape(E, nn, nq, -1) / dp[:, :, None, :]).reshape(x.shape)
-    ret = (res, q.amin(dim=1), q.amax(dim=1))
+    ret = (res,) + _point_minmax(q)
     if met is not None:
         s00, s01, s11 = _met_rows(met, "s00", "s01", "s11")
         ret += (_lap_wk(q, s00, s01, s11, deriv),)
@@ -306,7 +319,10 @@ def dss_face_plain(x, ft: FaceTables, rsp=None, avg=None, dp=None,
 def minmax_prep_plain(x, dp, nq):
     """Plain PyTorch version of the bound prep; see minmax_prep."""
     bump("minmax_prep_plain")
-    return _q_minmax(x, dp, nq)
+    E, nn, L = x.shape
+    mn, mx = _point_minmax(x.reshape(E, nn, nq, dp.shape[-1])
+                           / dp[:, :, None, :])
+    return mn.reshape(E, L), mx.reshape(E, L)
 
 
 def _ordered(q):
@@ -440,6 +456,38 @@ def dss_face(x, ft: FaceTables, rsp=None, avg=None, dp=None, met=None,
     if dp is None:
         return out
     return (out, qmin, qmax) + ((lap,) if met is not None else ())
+
+
+# K4's seven launch cases, as (flags, scale): flags bit 0 avg, bit 1
+# min/max, bit 2 Laplacian (csrc/dss.cu); scale: rspheremp given
+FACE_CASES = {"raw": (0, False), "scale": (0, True), "avg": (1, True),
+              "minmax": (2, True), "avg+minmax": (3, True),
+              "minmax+lap": (6, True), "avg+minmax+lap": (7, True)}
+
+
+def face_case(name, rsp, avg, dp, met, deriv):
+    """The keyword arguments of dss_face (and dss_face_plain) for launch
+    case name of FACE_CASES, from the full set of epilogue inputs."""
+    flags, scale = FACE_CASES[name]
+    return dict(rsp=rsp if scale else None, avg=avg if flags & 1 else None,
+                dp=dp if flags & 2 else None,
+                met=met if flags & 4 else None,
+                deriv=deriv if flags & 4 else None)
+
+
+def face_kernel_config(L, nk, dtype, flags, scale=True):
+    """K4's launch shape for launch case (flags, scale) on L lanes of nk
+    levels for 16-byte-aligned fields, on the current card: lanes per
+    thread, threads per block, lane groups per element, dynamic shared-
+    memory bytes per block and resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs a CUDA
+    device."""
+    buf = (ctypes.c_int * 5)()
+    fn = _build.entry("tse_dss_face_config", _DTYPES[dtype])
+    _build.check(fn(int(L), int(nk), int(flags), int(bool(scale)), buf),
+                 "dss_face_config")
+    return dict(zip(("vec", "threads", "groups", "smem_bytes",
+                     "blocks_per_sm"), buf))
 
 
 def minmax_prep(x, dp, nq):
