@@ -82,6 +82,16 @@ the result lines):
      case's state against one device's subcycle of its configuration
      through the plain versions (TOL of its dtype), and one step of its
      one-device entry(); the run's wall so far
+ 20. NE120 (perf_config(120, f32), 86,400 elements, 72 levels), each host
+     and device build timed: (a) 2 tracers, two face subcycles through
+     the kernels, the first bit for bit against the plain versions; (b)
+     the full 35 tracers (12.98 GiB a state, offsets past 2^31), two face
+     subcycles with the state handed over: launch counts, min_dp,
+     finiteness, per-tracer mass drift, ms per subcycle (CUDA events),
+     peak device memory against four states + 10 GiB, and tracers 0-1
+     after each subcycle bit for bit against (a)'s; then a third subcycle
+     under torch.profiler (device ms by kernel, share of busy, idle); the
+     phase's wall
 Then one JSON line of per-kernel results (the launches of K2 from the
 gather run of phase 4, of K10 from the NE30 CLI run of phase 10, of K7
 from the S = 8 run of phase 14, all others from the face run of phase 4;
@@ -92,6 +102,7 @@ and as the last line {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -187,6 +198,21 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ne42_proxy_value",
               "ne42_proxy_vs_baseline"}
 BENCH_TIMEOUT = 600      # s, the benchmark subprocess of phase 17
 GATHER_SUBCYCLES = 3     # phase 18: one warm-up, two timed
+# phase 20: NE120, the reference's headline grid (test/run_ne120_perf.sh,
+# perf_config(120)): 86,400 elements, 72 levels.  (a) 2 tracers, held bit
+# for bit against the plain versions; (b) the full 35 tracers, E*16*L =
+# 3.48e9 values (past 2^31), where the plain versions do not fit the card:
+# its tracers 0-1 are held bit for bit against (a)'s kernel run (every
+# kernel's result in a lane is independent of the tracer count,
+# tests/test_torch_lanes.py).  A subcycle holds at most four states
+# (model/core.py, tests/test_torch_memory.py); the peak allowed over (b),
+# above what phase 20 held before it, is four states plus NE120_SLACK of
+# winds, bounds and the tracers (b) keeps for the comparison.
+NE120 = 120
+NE120_FEW = 2
+NE120_SUBCYCLES = 2
+NE120_MAX_STATES = 4
+NE120_SLACK = 10 * 2**30
 
 
 def gather_shard_counts(S, nsub, overlap):
@@ -417,6 +443,25 @@ def timed(torch, fn, n=N_TIMED):
     return statistics.median(ts)
 
 
+def device_ms(pr, cuda, what):
+    """(device ms by kernel name, busy ms, span ms) of a torch.profiler
+    run pr: its events on device type cuda, busy time merged."""
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                   for ev in pr.events() if ev.device_type == cuda)
+    check(bool(spans), f"{what}: the profiler saw no device activity")
+    by_name, busy, end = {}, 0.0, spans[0][0]
+    for a, b, name in spans:
+        # a kernel's name without its namespace, arguments and template
+        # arguments, e.g. euler_kernel or vectorized_elementwise_kernel
+        short = re.split(r"[<(]", name.replace(
+            "(anonymous namespace)::", "").removeprefix("void "))[0]
+        short = short.split("::")[-1].strip()
+        by_name[short] = by_name.get(short, 0.0) + (b - a) / 1e3
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return by_name, busy / 1e3, (end - spans[0][0]) / 1e3
+
+
 def bits(torch, a):
     """a's bits as integers: -0 and +0 differ."""
     return a.view(torch.int32 if a.element_size() == 4 else torch.int64)
@@ -436,6 +481,7 @@ def port_modules():
                                         dryrun, k10_variants, verify)
     from transport_se_tpu_torch.config import (dcmip11_ne8, dcmip11_ne30,
                                                dcmip12_ne30, perf_config)
+    from transport_se_tpu_torch.grid.cubesphere import build_grid
     from transport_se_tpu_torch.model import core, driver, wind_basis
     from transport_se_tpu_torch.norms import history_norms
     from transport_se_tpu_torch.ops import (band, dss_face, euler, limiter,
@@ -444,7 +490,7 @@ def port_modules():
                                                  sharded)
     return dict(_build=_build, audit_drift=audit_drift, counters=counters,
                 dryrun=dryrun, k10_variants=k10_variants, verify=verify,
-                dcmip11_ne8=dcmip11_ne8,
+                dcmip11_ne8=dcmip11_ne8, build_grid=build_grid,
                 dcmip11_ne30=dcmip11_ne30, dcmip12_ne30=dcmip12_ne30,
                 perf_config=perf_config, core=core, driver=driver,
                 wind_basis=wind_basis, history_norms=history_norms,
@@ -452,6 +498,170 @@ def port_modules():
                 remap=remap,
                 comm=comm, face_sharded=face_sharded, halo=halo,
                 sharded=sharded)
+
+
+def phase_ne120(torch, mods, dev, t_start, ne=NE120):
+    """Phase 20: the NE ne face path at full size on one card (module
+    docstring).  Fails through check() on any mismatch."""
+    core, counters = mods["core"], mods["counters"]
+    build_model, make_subcycle_fn = core.build_model, core.make_subcycle_fn
+    t20 = time.perf_counter()
+    torch.cuda.empty_cache()
+    builds = {}
+
+    def built(name, t0):
+        torch.cuda.synchronize()
+        builds[name] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    g120 = mods["build_grid"](ne, order="raster")
+    built("grid (host)", t0)
+    t0 = time.perf_counter()
+    mods["dss_face"].build_face_tables(g120.part_idx, g120.part_mask, ne)
+    built("face tables (host)", t0)
+    del g120
+    cfg_b = mods["perf_config"](ne, dtype="f32", use_pallas=True)
+    cfg_a = dataclasses.replace(cfg_b, qsize=NE120_FEW)
+    t0 = time.perf_counter()
+    m_a = build_model(cfg_a, dev)
+    built("model (grid, face tables, copies to the card)", t0)
+    E, nk = m_a.lon.shape[0], cfg_b.nlev
+    sp16 = m_a.spheremp.reshape(E, 16).double()
+
+    def masses(Qt, nq):
+        """Per-tracer mass sum(spheremp * Qdp) in f64, a tracer at a time
+        (a f64 copy of the whole 35-tracer state would be 26 GiB)."""
+        v = Qt.view(E, 16, nq, nk)
+        return torch.stack([(v[:, :, i].double() * sp16[:, :, None]).sum()
+                            for i in range(nq)])
+
+    def run_face(m, nq, box):
+        """NE120_SUBCYCLES face subcycles of the handed-over state box ->
+        (tracers 0..NE120_FEW-1 after each, ms of each, min_dp of each,
+        launches, state's finiteness)."""
+        counters.reset()
+        t0 = time.perf_counter()
+        step = make_subcycle_fn(m, io_layout="t")
+        built(f"{nq}-tracer subcycle function (wind basis, 6 K4)", t0)
+        outs, ms, mds, nstep = [], [], [], 0
+        for _ in range(NE120_SUBCYCLES):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            box[0], _, nstep, md = step(box, nstep)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            mds.append(float(md))
+            outs.append(box[0].view(E, 16, nq, nk)[:, :, :NE120_FEW]
+                        .clone())
+        counts = counters.snapshot()
+        return (outs, ms, mds, counts, bool(torch.isfinite(box[0]).all()),
+                step, nstep)
+
+    # (a) 2 tracers: the kernels against the plain versions
+    t0 = time.perf_counter()
+    Q_a = core.initial_qdp_t(m_a)
+    built("2-tracer initial state", t0)
+    box = [Q_a.clone()]
+    outs_a, ms_a, mds_a, c_a, fin_a, _, _ = run_face(m_a, NE120_FEW, box)
+    del box
+    plain_a = make_subcycle_fn(m_a, io_layout="t", plain=True)(Q_a, 0)[0]
+    torch.cuda.synchronize()
+    same_a = torch.equal(bits(torch, outs_a[0].reshape(plain_a.shape)),
+                         bits(torch, plain_a))
+    d_a, r_a = rel_err(torch, outs_a[0].reshape(plain_a.shape), plain_a)
+    del plain_a, Q_a
+    torch.cuda.empty_cache()
+    check(same_a, f"NE120 {NE120_FEW}-tracer subcycle: kernels differ from "
+          f"the plain versions, max abs {d_a:.3e} (rel {r_a:.3e})")
+    for k, n in FACE_COUNTS.items():
+        check(c_a[k] == n and c_a[k + "_plain"] == 0,
+              f"NE120 {NE120_FEW} tracers: {k} {c_a[k]} (plain "
+              f"{c_a[k + '_plain']}), want {n}")
+    check(fin_a and min(mds_a) > 0,
+          f"NE120 {NE120_FEW} tracers: finite {fin_a}, min_dp {mds_a}")
+    say(f"phase 20 NE{ne} f32 {NE120_FEW} tracers (E={E}, tstep "
+        f"{cfg_a.tstep:g}, nu_q {cfg_a.nu_q:g}, limiter cap "
+        f"{cfg_a.limiter_iter_cap}): first face subcycle bit for bit equal "
+        f"to the plain versions; launches in {NE120_SUBCYCLES} subcycles "
+        + ", ".join(f"{k} {c_a[k]}" for k in FACE_COUNTS if c_a[k])
+        + f"; min_dp {mds_a}; ms a subcycle "
+        + ", ".join(f"{t:.3f}" for t in ms_a))
+
+    # (b) the full 35 tracers, the state handed over
+    m_b = dataclasses.replace(m_a, cfg=cfg_b)
+    nq_b = cfg_b.qsize
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    box = [core.initial_qdp_t(m_b)]
+    built(f"{nq_b}-tracer initial state", t0)
+    state_b = box[0].numel() * box[0].element_size()
+    if ne == NE120:
+        check(box[0].numel() > 2**31,
+              f"NE120 state of {box[0].numel()} values")
+    mass0 = masses(box[0], nq_b)
+    outs_b, ms_b, mds_b, c_b, fin_b, step_b, nstep = run_face(m_b, nq_b,
+                                                              box)
+    peak = torch.cuda.max_memory_allocated()
+    mass1 = masses(box[0], nq_b)
+    dmass = ((mass1 - mass0).abs() / mass0.abs())
+    # one more subcycle under torch.profiler: where the time goes at NE120
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as pr:
+        box[0] = step_b(box, nstep)[0]
+        torch.cuda.synchronize()
+    by_name, busy, span = device_ms(pr, DeviceType.CUDA, "phase 20")
+    del box, step_b, pr
+    torch.cuda.empty_cache()
+    for k, n in FACE_COUNTS.items():
+        check(c_b[k] == n and c_b[k + "_plain"] == 0,
+              f"NE120 {nq_b} tracers: {k} {c_b[k]} (plain "
+              f"{c_b[k + '_plain']}), want {n}")
+    check(fin_b and min(mds_b) > 0,
+          f"NE120 {nq_b} tracers: finite {fin_b}, min_dp {mds_b}")
+    check(dmass.max().item() < MASS_TOL,
+          f"NE120 {nq_b} tracers: mass change {dmass.max().item():.3e}")
+    # the run's own footprint: the peak above what was held before it
+    allowed = NE120_MAX_STATES * state_b + NE120_SLACK
+    check(peak - at_start <= allowed, f"NE120 {nq_b} tracers: peak {peak} "
+          f"B, {peak - at_start} B above the {at_start} B held before, > "
+          f"{NE120_MAX_STATES} states + {NE120_SLACK} B = {allowed} B")
+    for i, (x, y) in enumerate(zip(outs_b, outs_a)):
+        check(torch.equal(bits(torch, x), bits(torch, y)),
+              f"NE120 subcycle {i + 1}: tracers 0-{NE120_FEW - 1} of the "
+              f"{nq_b}-tracer run differ from the {NE120_FEW}-tracer run, "
+              f"max abs {rel_err(torch, x, y)[0]:.3e}")
+    del outs_a, outs_b, m_a, m_b, sp16
+    torch.cuda.empty_cache()
+    say(f"phase 20 NE{ne} f32 {nq_b} tracers (E*16*L = "
+        f"{E * 16 * nq_b * nk}, state {state_b / 2**30:.2f} GiB): tracers "
+        f"0-{NE120_FEW - 1} bit for bit equal to the {NE120_FEW}-tracer run "
+        f"after each of {NE120_SUBCYCLES} subcycles; launches "
+        + ", ".join(f"{k} {c_b[k]}" for k in FACE_COUNTS if c_b[k])
+        + f"; min_dp {mds_b}; finite {fin_b}; per-tracer relative mass "
+        f"change max {dmass.max().item():.3e}, median "
+        f"{dmass.median().item():.3e}; ms a subcycle "
+        + ", ".join(f"{t:.3f}" for t in ms_b)
+        + f"; peak allocated {peak / 2**30:.2f} GiB, "
+        f"{(peak - at_start) / 2**30:.2f} GiB = "
+        f"{(peak - at_start) / state_b:.3f} states above the "
+        f"{at_start / 2**30:.2f} GiB held before (allowed "
+        f"{allowed / 2**30:.2f})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    rest = sum(t for _, t in top[N_NAMES:])
+    say(f"phase 20 NE{ne} f32 {nq_b}-tracer face subcycle under "
+        f"torch.profiler: device span {span:.2f} ms, busy {busy:.2f} ms, "
+        f"idle {1 - busy / span:.1%}; device ms by kernel (share of busy): "
+        + ", ".join(f"{k} {t:.2f} ({t / busy:.1%})" for k, t in top[:N_NAMES])
+        + f", {max(0, len(top) - N_NAMES)} others {rest:.2f}")
+    say(f"phase 20 NE{ne} builds (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in builds.items())
+        + f"; phase wall {time.perf_counter() - t20:.1f} s; chip_smoke wall "
+        f"{time.perf_counter() - t_start:.1f} s")
 
 
 def main():
@@ -882,22 +1092,7 @@ def main():
                                                 ProfilerActivity.CUDA]) as pr:
             step(Qt, nstep)
             torch.cuda.synchronize()
-        spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
-                       for ev in pr.events()
-                       if ev.device_type == DeviceType.CUDA)
-        check(bool(spans), "phase 7: the profiler saw no device activity")
-        by_name, busy, end = {}, 0.0, spans[0][0]
-        for a, b, name in spans:
-            # a kernel's name without its namespace, arguments and template
-            # arguments, e.g. euler_kernel or vectorized_elementwise_kernel
-            short = re.split(r"[<(]", name.replace(
-                "(anonymous namespace)::", "").removeprefix("void "))[0]
-            short = short.split("::")[-1].strip()
-            by_name[short] = by_name.get(short, 0.0) + (b - a) / 1e3
-            busy += max(0.0, b - max(a, end))
-            end = max(end, b)
-        span_ms = (end - spans[0][0]) / 1e3
-        return by_name, busy / 1e3, span_ms
+        return device_ms(pr, DeviceType.CUDA, "phase 7")
 
     for mode, model in (("face", m), ("gather", m_g)):
         sub_ms, wall = steady(model)
@@ -1054,7 +1249,8 @@ def main():
     k10_launches = None
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         for test, ne, tstep, nu_q, days, held in CLI_RUNS:
-            pub = dict(zip(NORM_KEYS, mods["verify"].PUBLISHED[(test, ne)]))
+            pub = dict(zip(NORM_KEYS,
+                           mods["verify"].PUBLISHED[(test, ne, 72)]))
             by_jax = any(k in held for k in NORM_KEYS[:4])
             held = dict(pub, **held)
             d = Path(tmp) / f"{test}_ne{ne}"
@@ -1665,6 +1861,9 @@ def main():
         "launches " + ", ".join(f"{k} {v}" for k, v in ce.items())
         + f"; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     del q, q1, step
+
+    # ---- 20. NE120 at full size on one card -----------------------------
+    phase_ne120(torch, mods, dev, t_start)
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **results[k])

@@ -982,3 +982,51 @@ def test_k4_refuses_more_levels_than_shared_memory(cuda, dtype):
     dp = torch.ones(24, 16, nk, dtype=f, device=cuda)
     with pytest.raises(RuntimeError, match="dss_face"):
         dss_face.dss_face(x, ft, rsp=rsp, dp=dp)
+
+
+# NE120 at full size, perf_config(120, f32): 86,400 elements, 35 tracers x
+# 72 levels, E*16*L = 3.48e9 values (every offset of K1 and K3-K5 past
+# 2^31), one state 12.98 GiB.  The face subcycle with its state handed
+# over holds at most four states at any launch (model/core.py;
+# tests/test_torch_memory.py counts them on the CPU); the peak may add
+# NE120_SLACK of winds, bounds, tables and the 2-tracer run kept here.
+NE120_MAX_STATES = 4
+NE120_SLACK = 10 * 2**30
+
+
+@pytest.fixture(scope="module")
+def ne120(cuda):
+    """One face subcycle of NE120 with 2 tracers and with 35, both through
+    the kernels -> dict(two, full: tracers 0-1 after the subcycle, peak:
+    the card's peak allocated bytes over the 35-tracer subcycle, state:
+    one 35-tracer state's bytes, min_dp)."""
+    from transport_se_tpu_torch.config import perf_config
+    cfg = perf_config(120, dtype="f32", use_pallas=True)
+    m2 = build_model(dataclasses.replace(cfg, qsize=2), cuda)
+    E, nk = m2.lon.shape[0], cfg.nlev
+    two = make_subcycle_fn(m2, io_layout="t")([core.initial_qdp_t(m2)], 0)[0]
+    m35 = dataclasses.replace(m2, cfg=cfg)
+    step = make_subcycle_fn(m35, io_layout="t")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    box = [core.initial_qdp_t(m35)]
+    state = box[0].numel() * box[0].element_size()
+    out, _, _, md = step(box, 0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    full = out.view(E, 16, cfg.qsize, nk)[:, :, :2].clone()
+    assert bool(torch.isfinite(out).all())
+    del out, box
+    torch.cuda.empty_cache()
+    return dict(two=two.view(E, 16, 2, nk), full=full, peak=peak,
+                state=state, min_dp=float(md), values=E * 16 * 35 * nk)
+
+
+def test_ne120_full_tracers_match_two_tracer_run_bitwise(ne120):
+    assert ne120["values"] > 2**31 and ne120["min_dp"] > 0
+    assert torch.equal(ne120["full"].view(torch.int32),
+                       ne120["two"].view(torch.int32))
+
+
+def test_ne120_peak_memory_within_the_plan(ne120):
+    assert ne120["peak"] <= NE120_MAX_STATES * ne120["state"] + NE120_SLACK

@@ -30,6 +30,7 @@ Both refuse to run without a card unless --device cpu is given.
 
 import dataclasses
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -222,3 +223,137 @@ def test_audit_drift_small(capsys):
     s0, s1 = got["mass0"].sum(axis=1), got["mass1"].sum(axis=1)
     np.testing.assert_array_equal(got["drift"], np.abs(s1 - s0) / np.abs(s0))
     assert np.median(got["drift"]) > 1e-8 and got["max"] < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the published rows by (test, ne, nlev), and NE120 (ROADMAP A7)
+# ---------------------------------------------------------------------------
+
+# the four 72-level rows verify.PUBLISHED held before it was keyed by
+# level count
+PUBLISHED_72 = {
+    ("dcmip1-1", 8): (0.578151, 0.865526, 0.883168, 0.187204,
+                      -3.207090e-13),
+    ("dcmip1-2", 8): (0.307665, 0.622099, 0.839133, 0.813105,
+                      -9.385639e-06),
+    ("dcmip1-1", 30): (0.490013, 0.789052, 0.918454, 0.445141,
+                       -3.559994e-11),
+    ("dcmip1-2", 30): (0.121783, 0.361005, 1.092784, 0.836177,
+                       -3.671997e-05),
+}
+
+
+def baseline_rows():
+    """BASELINE.md's error-norm rows: (test, ne, nlev) -> (L1, L2, Linf,
+    the row's config text)."""
+    rows, nlev = {}, None
+    pat = re.compile(r"^\| NE(\d+) DCMIP(1-[12]) L1 / L2 / Linf \| "
+                     r"(\S+) / (\S+) / (\S+) \| ([^|]*)\|")
+    for ln in (ROOT / "BASELINE.md").read_text().splitlines():
+        mt = pat.match(ln)
+        if mt:
+            # a config of "same" is the row above's
+            lev = re.match(r"\s*(\d+)L", mt.group(6))
+            nlev = int(lev.group(1)) if lev else nlev
+            key = (f"dcmip{mt.group(2)}", int(mt.group(1)), nlev)
+            rows[key] = tuple(float(mt.group(i)) for i in (3, 4, 5)) + (
+                mt.group(6),)
+    return rows
+
+
+def survey_extrema():
+    """SURVEY.md 6.1's q_max and q_min of the same rows (the reference
+    README's, which BASELINE.md leaves out for most rows)."""
+    rows = {}
+    pat = re.compile(r"^\| NE(\d+), (\d+)L[^|]*\| DCMIP (1-[12]) \|"
+                     r"(?: [^|]+ \|){3} (\S+) \| (\S+) \|")
+    for ln in (ROOT / "SURVEY.md").read_text().splitlines():
+        mt = pat.match(ln)
+        if mt:
+            key = (f"dcmip{mt.group(3)}", int(mt.group(1)), int(mt.group(2)))
+            rows[key] = (float(mt.group(4)),
+                         float(mt.group(5).replace("−", "-")))
+    return rows
+
+
+def test_published_rows_are_the_documents():
+    base, ext = baseline_rows(), survey_extrema()
+    # every BASELINE.md row but the one the reference marks perf-only
+    perf_only = {k for k, v in base.items() if "config issue" in v[3]}
+    assert perf_only == {("dcmip1-1", 120, 72)}
+    assert set(verify.PUBLISHED) == set(base) - perf_only
+    assert len(verify.PUBLISHED) == 11
+    for key, pub in verify.PUBLISHED.items():
+        assert pub[:3] == base[key][:3], key
+        assert pub[3:] == ext[key], key
+
+
+@pytest.mark.parametrize("key", list(PUBLISHED_72))
+def test_published_72_level_rows_unchanged(key):
+    assert verify.PUBLISHED[key + (72,)] == PUBLISHED_72[key]
+
+
+def jax_ne120_config(test, days, monkeypatch):
+    """The Config scripts/verify_ne120.py builds at NE120_TEST=test,
+    NE120_DAYS=days (its run stopped where it builds the model)."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_verify_ne120", ROOT / "scripts" / "verify_ne120.py")
+    mod = importlib.util.module_from_spec(spec)
+    seen = {}
+
+    def stop(cfg):
+        seen["cfg"] = cfg
+        raise _Built
+
+    monkeypatch.setattr(jcore, "build_model", stop)
+    monkeypatch.setenv("NE120_TEST", test)
+    monkeypatch.setenv("NE120_DAYS", str(days))
+    with pytest.raises(_Built):
+        spec.loader.exec_module(mod)
+    return seen["cfg"]
+
+
+# the fields that only steer the run's diagnostics: the lean JAX script
+# turns them off, the port's verify prints its state log
+DIAGNOSTIC_FIELDS = {"statefreq", "disable_diagnostics"}
+
+
+@pytest.mark.parametrize("test,days", [("dcmip1-1", 12), ("dcmip1-2", 1)])
+def test_ne120_config_matches_verify_ne120(test, days, monkeypatch):
+    want = jax_ne120_config(test, days, monkeypatch)
+    flags = ["--test", test, "--ne", "120", "--nlev", "64", "--qsize", "2",
+             "--pallas"]
+    got = verify.build_config(verify.parser().parse_args(
+        flags + ["--dtype", "f32"]))
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(want)]
+    for f in dataclasses.fields(want):
+        if f.name not in DIAGNOSTIC_FIELDS:
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert (got.dtype, got.tstep, got.nu_q, got.vcoord, got.dss_mode,
+            got.elem_order, got.limiter_iter_cap, got.nsteps) == \
+        ("f32", 75.0, 1e13, "dcmip64", "face", "raster", 0, days * 1152)
+    # A7's other half: the same run in f64 (verify's default dtype)
+    f64 = verify.build_config(verify.parser().parse_args(flags))
+    assert f64 == dataclasses.replace(got, dtype="f64")
+    assert verify.PUBLISHED[(test, 120, 64)] is not None
+
+
+# NE8 at 64 levels, 2 tracers, 6 steps (2 subcycles), the std path in f64
+NE8_64L = ["--ne", "8", "--nlev", "64", "--qsize", "2", "--days", "0.0278",
+           "--device", "cpu"]
+
+
+def test_ne8_64_levels_matches_jax(capsys):
+    got = verify.main(NE8_64L)
+    out = capsys.readouterr().out
+    cfg = got["config"]
+    assert cfg.nsteps == 6 and cfg.vcoord == "dcmip64" and cfg.nlev == 64
+    assert got["published"] == verify.PUBLISHED[("dcmip1-1", 8, 64)]
+    assert "published: L1=0.529725 L2=0.637015 Linf=0.610602" in out
+    want, jdrift = jax_norms(cfg)
+    n = got["norms"]
+    for k in ("l1", "l2", "linf", "q_max"):
+        assert getattr(n, k) == pytest.approx(getattr(want, k), rel=1e-12), k
+    assert abs(n.q_min - want.q_min) <= 1e-12 * want.q_max
+    assert got["drift"] < 1e-13 and jdrift < 1e-13

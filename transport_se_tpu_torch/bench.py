@@ -9,6 +9,14 @@ Rows, as bench.py has them:
 * the NE42 proxy: `perf_config(42, ...)`, 6*42^2 = 10584 elements (about
   one 8-way shard of the NE120 grid) at NE120's tstep 75 and nu 1e13.
 
+BENCH_NE=120 BENCH_PROXY=0 runs the reference's headline configuration
+itself (`test/run_ne120_perf.sh`: 86,400 elements x 16 x 72 levels x 35
+tracers, tstep 75, nu_q 1e13) on one card: its state is 12.98 GiB in f32,
+and a subcycle holds at most four states at once (`model.core`), so the
+row needs about 60 GiB.  Each row's stderr also gives its build times,
+the size of one state and the card's peak allocated memory
+(`torch.cuda.max_memory_allocated`) over the row.
+
 Metric (bench.py's): gridpoint-tracers advanced per second =
 steps * E * 16 * nlev * qsize / wall, and vs_baseline against the
 reference's NE120 perf run on 960 Edison cores, 3.53e9 /s (BASELINE.md).
@@ -105,32 +113,61 @@ def card_line(device) -> str:
     return f"{torch.cuda.get_device_name(device)}, power limit not read"
 
 
+def initial_state(m):
+    """The row's initial state in its pipeline's layout: [E, 16, q*k]
+    built in place on the T path (`initial_qdp_t`: one state's memory at
+    NE120's 35 tracers, 13 GiB in f32), Qdp [E, q, k, 4, 4] on the std
+    path."""
+    from .model.core import initial_qdp, initial_qdp_t, uses_t_layout
+    return initial_qdp_t(m) if uses_t_layout(m.cfg) else initial_qdp(m)
+
+
 def measure(cfg, subcycles, device, log):
     """Time one row -> dict(E, work (gridpoint-tracers a window), windows
     [(host s, events ms or None)], rates, value (median rate), pooled (all
-    windows' work over all their wall), min_dp, finite, launches).
-    log(str) takes the per-window lines."""
+    windows' work over all their wall), min_dp, finite, launches, build
+    (s of the kernels' library on the card, the model, the subcycle
+    function with its wind basis and the initial state), state_bytes (one
+    state) and peak_bytes (the card's
+    peak allocated memory over the row, None on the CPU)).
+    log(str) takes the per-window lines.  The state is handed to each
+    subcycle (a one-element list), which frees every state-sized buffer at
+    its last use."""
     import torch
 
     from . import counters
-    from .model.core import (_tp, build_model, initial_qdp,
-                             make_subcycle_fn, uses_t_layout)
+    from .model.core import build_model, make_subcycle_fn, uses_t_layout
     cuda = device.type == "cuda"
 
     def sync():
         if cuda:
             torch.cuda.synchronize(device)
 
+    build = {}
+    if cuda:
+        from . import _build
+        t0 = time.perf_counter()
+        _build.library()     # nvcc on first use, cached after
+        build["kernels"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
     m = build_model(cfg, device)
     E = m.lon.shape[0]
-    t_layout = uses_t_layout(cfg)
-    step = make_subcycle_fn(m, io_layout="t" if t_layout else "std")
-    Q = initial_qdp(m)
-    if t_layout:
-        Q = _tp(Q, E, cfg.qsize * cfg.nlev)
+    sync()
+    build["model"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = make_subcycle_fn(m, io_layout="t" if uses_t_layout(cfg)
+                            else "std")
+    sync()
+    build["subcycle_fn"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    box = [initial_state(m)]
+    sync()
+    build["state"] = time.perf_counter() - t0
+    state_bytes = box[0].numel() * box[0].element_size()
     nstep = 0
     for _ in range(max(WARMUP_MIN, subcycles)):
-        Q, _, nstep, _ = step(Q, nstep)
+        box[0], _, nstep, _ = step(box, nstep)
     sync()
     work = subcycles * cfg.rsplit * E * 16 * cfg.nlev * cfg.qsize
     counters.reset()
@@ -143,7 +180,7 @@ def measure(cfg, subcycles, device, log):
         if cuda:
             ev[0].record()
         for i in range(subcycles):
-            Q, _, nstep, md = step(Q, nstep)
+            box[0], _, nstep, md = step(box, nstep)
             mins.append(md)
             if cuda:
                 ev[i + 1].record()
@@ -166,7 +203,10 @@ def measure(cfg, subcycles, device, log):
                 value=statistics.median(rates),
                 pooled=work * len(windows) / sum(h for h, _ in windows),
                 min_dp=float(torch.stack(mins).min()),
-                finite=bool(torch.isfinite(Q).all()), launches=launches)
+                finite=bool(torch.isfinite(box[0]).all()), launches=launches,
+                build=build, state_bytes=state_bytes,
+                peak_bytes=(torch.cuda.max_memory_allocated(device) if cuda
+                            else None))
 
 
 def main(argv=None) -> int:
@@ -206,6 +246,13 @@ def main(argv=None) -> int:
             log(f"error: NE{ne}: min_dp {r['min_dp']!r}, finite "
                 f"{r['finite']}: a broken state gives no rate")
             return 1
+        peak = ("n/a" if r["peak_bytes"] is None else
+                f"{r['peak_bytes']!r} B = {r['peak_bytes'] / 2**30:.2f} GiB "
+                f"= {r['peak_bytes'] / r['state_bytes']:.3f} states")
+        log(f"NE{ne} memory: state {r['state_bytes']!r} B = "
+            f"{r['state_bytes'] / 2**30:.2f} GiB; peak allocated {peak}; "
+            "build s: " + ", ".join(f"{k} {v:.2f}"
+                                    for k, v in r["build"].items()))
         vs = "vs_baseline" if key == "value" else "ne42_proxy_vs_baseline"
         if key == "value":
             out.update(metric=f"NE{ne} {st['qsize']}-tracer "

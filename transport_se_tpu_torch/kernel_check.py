@@ -13,7 +13,11 @@ It builds an NE8 face model in f32 and in f64 (perf_config), and launches
 on each: K1 at its three stage kinds, K2, K3 at alg 0 and 2, K4 in its
 seven launch cases, K5, K6, then one face subcycle; K7 in its four
 variants on every shard of an S = 2 band shard set; K10 on the NE8 std
-path's stage 0.  --only K3 launches K3 alone (both models).  --builds N
+path's stage 0; then one face subcycle of NE120's full production
+configuration (perf_config(120, f32), 35 tracers x 72 levels: E*16*L =
+3.48e9 values, every offset of K1, K3, K4, K5 past 2^31; K6's tiles
+divide the face evenly).  --only K3 launches K3 alone (both NE8 models).
+--builds N
 first builds the NE30 f32 face model, its wind basis (K4) and its limiter
 bounds (K5, K6) N times, each followed by a synchronize (run it with
 CUDA_LAUNCH_BLOCKING=1 to stop at the launch that faults).  Prints one line
@@ -112,6 +116,21 @@ def check_k10(dev):
     sync(f"{c.dtype} K10 stage 0")
 
 
+def check_ne120(dev):
+    """One face subcycle of perf_config(120, f32), the state handed over
+    (at most four states alive, ~60 GiB)."""
+    cfg = perf_config(120, dtype="f32", use_pallas=True)
+    m = core.build_model(cfg, dev)
+    step = core.make_subcycle_fn(m, io_layout="t")
+    box = [core.initial_qdp_t(m)]
+    counters.reset()
+    box[0], _, _, md = step(box, 0)
+    sync(f"NE120 f32 face subcycle, {cfg.qsize} x {cfg.nlev} lanes, E*16*L "
+         f"{box[0].numel()}, min_dp {float(md):.6g}, launches "
+         + ", ".join(f"{k} {v}" for k, v in counters.snapshot().items()
+                     if v))
+
+
 def check_builds(n, dev, ne=30):
     """The NE ne f32 face model, its wind basis (K4) and its limiter bounds
     (K5, K6), built n times."""
@@ -148,6 +167,7 @@ def main(argv=None):
         del m, x, dp
     if args.only is None:
         check_k10(dev)
+        check_ne120(dev)
     print("kernel_check: ok", flush=True)
 
 

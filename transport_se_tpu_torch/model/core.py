@@ -135,9 +135,35 @@ def initial_qdp(m: Model):
     return q * m.dp0col[None, None, :, None, None]
 
 
+def initial_qdp_t(m: Model):
+    """initial_qdp in the T layout [E, 16, q*k], bitwise _tp(initial_qdp(m),
+    E, q*k), written a tracer at a time into the one state buffer: the
+    build holds one state and a few [E, k, 4, 4] fields, where initial_qdp
+    and _tp hold two states at once."""
+    cfg = m.cfg
+    E, nq, nk = m.lon.shape[0], cfg.qsize, cfg.nlev
+    out = m.lon.new_empty((E, 16, nq, nk))
+    for i, q in enumerate(dcmip.initial_tracer_fields(
+            cfg.test_case, m.lon, m.lat, m.etam, nq)):
+        out[:, :, i] = (q * m.dp0col[None, :, None, None]) \
+            .reshape(E, nk, 16).transpose(1, 2)
+    return out.reshape(E, 16, nq * nk)
+
+
 def _tp(x, E, inner):
     """[E, ..., 4, 4] with `inner` batch -> [E, 16, inner] (contiguous)."""
     return x.reshape(E, inner, 16).transpose(1, 2).contiguous()
+
+
+def _take(x):
+    """The state a pipeline function is handed: x itself (the caller keeps
+    it alive), or the one tensor of the list x, which is set to None so
+    that the callee drops the last reference at the tensor's last use, as
+    XLA frees a donated buffer."""
+    if isinstance(x, list):
+        t, x[0] = x[0], None
+        return t
+    return x
 
 
 def _tp_back(x_t, shape):
@@ -305,6 +331,12 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
     output/next_dp (face mode only; the gather mode gives None).  pre_lap:
     that Laplacian, for stage 2.  avg_t: fuse qdp_time_avg into the
     output.  plain: run the kernels' plain PyTorch versions (test-only).
+    Qt, qmin, qmax, pre_minmax and pre_lap may each be handed over as a
+    one-element list (_take): the stage then drops its bounds and bound
+    prep once its own bounds are made, the first Laplacian once the
+    hyperviscosity input is made, and its input and that input after K1,
+    so that a subcycle holds at most four state-sized buffers and four
+    [E, L] bound arrays at any kernel launch.
     On a shard in boundary-first order (tables.nbound between 0 and E)
     K1 runs on the boundary group and on the interior apart, the DSS takes
     its halo from the boundary group's output alone (its exchange started
@@ -314,6 +346,8 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
     None)."""
     cfg = m.cfg
     tb = m.tables
+    Qt, qmin, qmax, pre_minmax, pre_lap = map(
+        _take, (Qt, qmin, qmax, pre_minmax, pre_lap))
     E, _, L = Qt.shape
     nq, nk = cfg.qsize, cfg.nlev
     advect, laplace, _ = _kernels(plain)
@@ -324,16 +358,19 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
         qmin_l, qmax_l = tb.minmax_prep(Qt, dp_t, nq, plain=plain)
     else:
         qmin_l, qmax_l = pre_minmax
+    pre_minmax = None
 
     bih, nu_coef = None, 0.0
-    if rhs_multiplier == 0:
-        qmin, qmax = tb.neighbor_minmax(qmin_l, qmax_l, plain=plain)
-    elif rhs_multiplier == 1:
+    if rhs_multiplier == 1:
         qmin = torch.minimum(qmin, qmin_l)
         qmax = torch.maximum(qmax, qmax_l)
     else:
-        rhs_viss = 3
+        # stages 0 and 2 take fresh neighbour bounds: the inputs are dead
+        qmin = qmax = None
         qmin, qmax = tb.neighbor_minmax(qmin_l, qmax_l, plain=plain)
+    del qmin_l, qmax_l
+    if rhs_multiplier == 2:
+        rhs_viss = 3
         if cfg.nu_q > 0:
             # biharmonic: laplace -> DSS -> rspheremp here; the second
             # Laplacian and the tendency run inside the fused kernel.  The
@@ -343,9 +380,11 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
                 Q_t = (Qt.reshape(E, 16, nq, nk)
                        / dp_t[:, :, None, :]).reshape(E, 16, L)
                 pre_lap = laplace(Q_t, m.met, m.deriv)
+                del Q_t
             bih = tb.dss_scale_t(pre_lap, rsp16, plain=plain)
+    pre_lap = None
 
-    kw = dict(bih=bih, nu_coef=nu_coef, dp0=m.dp0ref,
+    kw = dict(nu_coef=nu_coef, dp0=m.dp0ref,
               max_iter=cfg.limiter_iter_cap or MAX_ITER)
     def advect_on(pick):
         """K1 on the elements pick(a) selects of every per-element operand."""
@@ -353,7 +392,7 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
             return None if a is None else pick(a)
         return advect(cut(Qt), (cut(uv_t[0]), cut(uv_t[1])), cut(dp_t),
                       cut(divdp_t), cut(qmin), cut(qmax), cut(m.met),
-                      m.deriv, float(dt), **dict(kw, bih=cut(bih)))
+                      m.deriv, float(dt), bih=cut(bih), **kw)
 
     nb = getattr(tb, "nbound", 0)
     if 0 < nb < E:
@@ -368,6 +407,7 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
         out_b, qmin_b, qmax_b = advect_on(lambda a: a[:nb])
         pending = tb.halo_start(out_b)
         out_i, qmin_i, qmax_i = advect_on(lambda a: a[nb:])
+        Qt = bih = None
         res = tb.dss_sum_t_split(out_b, out_i, pending) * rsp16[:, :, None]
         if avg_t is not None:
             res = (avg_t + 2.0 * res) / 3.0
@@ -384,6 +424,8 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
         # out_t[bidx] and the assembly is unchanged; the payload depends
         # only on the small launch.
         dss_kw["xb"] = advect_on(lambda a: a.index_select(0, tb.bidx))[0]
+    # the stage's input and hyperviscosity input are dead after K1
+    Qt = bih = None
     qmin, qmax = qmin_o, qmax_o
     if next_dp is not None:
         Qt_new, nmn, nmx, lap = tb.dss_scale_minmax_t(
@@ -402,25 +444,34 @@ def advect_rk2_t_parts(m: Model, Qt, uv_t, divdp_t, divdp_proj_t, dt_q,
     Each stage's DSS also produces the NEXT stage's bound prep; stage 1's
     also the first biharmonic Laplacian (face mode); the third stage fuses
     qdp_time_avg and, given next_step_dp, the next tracer step's stage-0
-    prep.  Returns (Qt', divdp_proj_t, next_minmax-or-None)."""
+    prep.  Qt and pre_minmax0 may be handed over as one-element lists
+    (_take); the stages hand their outputs and bounds on the same way, so
+    each is freed at its last use.  Returns (Qt', divdp_proj_t,
+    next_minmax-or-None)."""
+    Qt = _take(Qt)           # the input, kept for the time average
     E = Qt.shape[0]
     dt2 = dt_q / 2.0
     dp0_t = m.dp0col[None, None, :].expand(E, 16, m.cfg.nlev)
     dp1_t = dp0_t - 1.0 * dt2 * divdp_proj_t
     dp2_t = dp0_t - 2.0 * dt2 * divdp_proj_t
-    zmin = Qt.new_zeros((E, Qt.shape[2]))
-    Qt1, qmin, qmax, nb1 = euler_step_t(
-        m, Qt, zmin, zmin, divdp_t, divdp_proj_t, uv_t, dt2, 0,
+    # each stage's output, bounds and bound prep, handed to the next stage
+    box, mn, mx, pre = [None], [None], [None], [None]
+    mn[0] = mx[0] = Qt.new_zeros((E, Qt.shape[2]))
+    box[0], mn[0], mx[0], nb = euler_step_t(
+        m, Qt, mn, mx, divdp_t, divdp_proj_t, uv_t, dt2, 0,
         pre_minmax=pre_minmax0, next_dp=dp1_t, plain=plain)
-    Qt2, qmin, qmax, nb2 = euler_step_t(
-        m, Qt1, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt2, 1,
-        pre_minmax=nb1 and nb1[0], next_dp=dp2_t, next_lap=m.cfg.nu_q > 0,
+    pre[0], nb = nb and nb[0], None
+    box[0], mn[0], mx[0], nb = euler_step_t(
+        m, box, mn, mx, divdp_t, divdp_proj_t, uv_t, dt2, 1,
+        pre_minmax=pre, next_dp=dp2_t, next_lap=m.cfg.nu_q > 0,
         plain=plain)
-    Qt3, qmin, qmax, nb3 = euler_step_t(
-        m, Qt2, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt2, 2,
-        pre_minmax=nb2 and nb2[0], pre_lap=nb2 and nb2[1], avg_t=Qt,
-        next_dp=next_step_dp, plain=plain)
-    return Qt3, divdp_proj_t, None if nb3 is None else nb3[0]
+    pre[0], lap = (None, [None]) if nb is None else (nb[0], [nb[1]])
+    nb = None
+    Qt3, _, _, nb = euler_step_t(
+        m, box, mn, mx, divdp_t, divdp_proj_t, uv_t, dt2, 2,
+        pre_minmax=pre, pre_lap=lap, avg_t=Qt, next_dp=next_step_dp,
+        plain=plain)
+    return Qt3, divdp_proj_t, None if nb is None else nb[0]
 
 
 def vertical_remap_t(m: Model, Qt, divdp_proj_t, dt_remap, plain=False):
@@ -500,7 +551,11 @@ def uses_t_layout(cfg: Config, diagnostics: bool = False) -> bool:
 
 def make_subcycle_fn(m: Model, diagnostics: bool = False,
                      io_layout: str = "std", plain: bool = False):
-    """Returns fn(Qdp, nstep) -> (Qdp', ps_v, nstep', min_dp).
+    """Returns fn(Qdp, nstep) -> (Qdp', ps_v, nstep', min_dp).  Qdp may be
+    handed over as a one-element list, which fn empties (_take): its
+    stages then free every state-sized buffer at its last use, so that a
+    face T subcycle holds at most four of them at any kernel launch
+    (tests/test_torch_memory.py); a tensor stays alive in its caller.
 
     One call advances cfg.rsplit tracer steps and performs one vertical
     remap (prim_driver_mod.F90:788-796); nstep counts tracer steps.  The
@@ -542,6 +597,7 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
                 "limiter_option=8, diagnostics off)")
 
         def step(Qdp, nstep: int):
+            Qdp = _take(Qdp)
             divdp_proj = None
             for _ in range(cfg.rsplit):
                 t_wind = t_wind_of(nstep)
@@ -571,11 +627,14 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
     wb = build_wind_basis(m, plain=plain)
 
     def subcycle_t(Qt, nstep: int):
-        E = Qt.shape[0]
+        # a tensor stays the caller's; a one-element list hands it over
+        box = Qt if isinstance(Qt, list) else [Qt]
+        del Qt
+        E = box[0].shape[0]
         # contiguous: the next step's stage-0 dp of the bound-prep kernels
         dp0_t = m.dp0col[None, None, :].expand(E, 16, cfg.nlev).contiguous()
         divdp_proj_t = None
-        mm0 = None
+        mm0 = [None]     # a step's stage-0 bound prep, from the step before
         for i in range(cfg.rsplit):
             _, _, un0_t, vn0_t, divdp_t, divdp_proj_t = wb.eval(
                 t_wind_of(nstep))
@@ -586,21 +645,23 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
             # step i's stage-3 output bounds over dp0 are step i+1's
             # stage-0 prep (stage-0 dp is the static dp0)
             nd = dp0_t if i < cfg.rsplit - 1 else None
-            Qt, divdp_proj_t, mm0 = advect_rk2_t_parts(
-                m, Qt, (un0_t, vn0_t), divdp_t, divdp_proj_t, dt_q,
+            box[0], divdp_proj_t, mm0[0] = advect_rk2_t_parts(
+                m, box, (un0_t, vn0_t), divdp_t, divdp_proj_t, dt_q,
                 pre_minmax0=mm0, next_step_dp=nd, plain=plain)
             nstep = nstep + 1
-        Qt, ps_v, min_dp = vertical_remap_t(m, Qt, divdp_proj_t, dt_remap,
-                                            plain=plain)
+        Qt, ps_v, min_dp = vertical_remap_t(m, _take(box), divdp_proj_t,
+                                            dt_remap, plain=plain)
         return Qt, ps_v, nstep, min_dp
 
     if io_layout == "t":
         return subcycle_t
 
     def step_t(Qdp, nstep: int):
-        E = Qdp.shape[0]
-        Qt, ps_v, nstep, min_dp = subcycle_t(
-            _tp(Qdp, E, cfg.qsize * cfg.nlev), nstep)
-        return _tp_back(Qt, Qdp.shape), ps_v, nstep, min_dp
+        Qdp = _take(Qdp)
+        shape = Qdp.shape
+        box = [_tp(Qdp, shape[0], cfg.qsize * cfg.nlev)]
+        del Qdp
+        Qt, ps_v, nstep, min_dp = subcycle_t(box, nstep)
+        return _tp_back(Qt, shape), ps_v, nstep, min_dp
 
     return step_t

@@ -187,23 +187,29 @@ def checkerboard(lon, lat, nlev):
                               + q2d.shape[1:])
 
 
-def initial_tracers(test_case, lon, lat, etam, qsize):
-    """Full initial tracer stack [E, qsize, K, n, n] (wrapper semantics:
-    dcmip1-1 fills tracers 5.. with the checkerboard, dcmip1-2 fills tracer
-    1 and tracers 3.. with it)."""
+def initial_tracer_fields(test_case, lon, lat, etam, qsize):
+    """The initial tracers one at a time: a list of qsize [E, K, n, n]
+    fields, views where tracers share one (wrapper semantics: dcmip1-1
+    fills tracers 5.. with the checkerboard, dcmip1-2 fills tracer 1 and
+    tracers 3.. with it)."""
     nlev = etam.shape[0]
-    chk = checkerboard(lon, lat, nlev)[:, None]
+    chk = checkerboard(lon, lat, nlev)
     if test_case == "dcmip1-1":
         qs = tracers_11(lon, lat, etam)
-        extra = [chk] * max(0, qsize - 4)
-        q = torch.cat([qs[:, :min(4, qsize)]] + extra, dim=1)
+        parts = [qs[:, i] for i in range(4)] + [chk] * max(0, qsize - 4)
     elif test_case == "dcmip1-2":
-        layer = tracer_12(lon, lat, etam)
-        parts = [chk, layer] + [chk] * max(0, qsize - 2)
-        q = torch.cat(parts[:qsize] if qsize >= 2 else [chk], dim=1)
+        parts = [chk, tracer_12(lon, lat, etam)[:, 0]] \
+            + [chk] * max(0, qsize - 2)
     else:
         raise ValueError(f"unknown test case {test_case}")
-    return q[:, :qsize]
+    return parts[:qsize]
+
+
+def initial_tracers(test_case, lon, lat, etam, qsize):
+    """Full initial tracer stack [E, qsize, K, n, n]
+    (initial_tracer_fields stacked)."""
+    return torch.stack(initial_tracer_fields(test_case, lon, lat, etam,
+                                             qsize), dim=1)
 
 
 def winds(test_case, lon, lat, etam, time):

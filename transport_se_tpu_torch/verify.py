@@ -27,18 +27,34 @@ import time
 
 from .main import pick_device
 
-# the published norms of the 72-level runs (72L, rsplit=3; reference
-# README:94-96, 127-129; BASELINE.md), (test, ne) -> (L1, L2, Linf, q_max,
-# q_min)
+# the published norms (the reference README:90-153; BASELINE.md, SURVEY.md
+# 6.1), (test, ne, nlev) -> (L1, L2, Linf, q_max, q_min); rsplit 3, the
+# 72-level rows on acme72, the 64-level rows on DCMIP's uniform-z levels.
+# The README's 72L NE120 DCMIP 1-1 row is left out: the reference marks it
+# "config issue, perf-only".
 PUBLISHED = {
-    ("dcmip1-1", 8): (0.578151, 0.865526, 0.883168, 0.187204,
-                      -3.207090e-13),
-    ("dcmip1-2", 8): (0.307665, 0.622099, 0.839133, 0.813105,
-                      -9.385639e-06),
-    ("dcmip1-1", 30): (0.490013, 0.789052, 0.918454, 0.445141,
-                       -3.559994e-11),
-    ("dcmip1-2", 30): (0.121783, 0.361005, 1.092784, 0.836177,
-                       -3.671997e-05),
+    ("dcmip1-1", 8, 72): (0.578151, 0.865526, 0.883168, 0.187204,
+                          -3.207090e-13),
+    ("dcmip1-2", 8, 72): (0.307665, 0.622099, 0.839133, 0.813105,
+                          -9.385639e-06),
+    ("dcmip1-1", 30, 72): (0.490013, 0.789052, 0.918454, 0.445141,
+                           -3.559994e-11),
+    ("dcmip1-2", 30, 72): (0.121783, 0.361005, 1.092784, 0.836177,
+                           -3.671997e-05),
+    ("dcmip1-2", 120, 72): (0.081287, 0.264887, 0.591157, 0.959530,
+                            -2.795861e-09),
+    ("dcmip1-1", 8, 64): (0.529725, 0.637015, 0.610602, 0.458165,
+                          -9.533290e-14),
+    ("dcmip1-2", 8, 64): (0.263420, 0.388462, 0.638387, 0.989853,
+                          -1.274771e-08),
+    ("dcmip1-1", 30, 64): (0.138438, 0.202473, 0.298522, 0.97423,
+                           -7.633613e-14),
+    ("dcmip1-2", 30, 64): (0.057890, 0.123954, 0.270831, 0.97973,
+                           -4.540577e-14),
+    ("dcmip1-1", 120, 64): (0.0794911, 0.139212, 0.30697, 0.984063,
+                            -1.76014e-13),
+    ("dcmip1-2", 120, 64): (0.0363203, 0.0987048, 0.277493, 0.994146,
+                            -5.06671e-14),
 }
 
 
@@ -134,7 +150,7 @@ def main(argv=None) -> dict:
     zm = SCALE_HEIGHT * np.log(1.0 / to_numpy(res.model.etam))
     norms = dcmip_error_norms(qi, qf, lat_col, zm, ne=args.ne)
     print(f"\nDCMIP {args.test} NE{args.ne}: {norms}")
-    pub = PUBLISHED.get((args.test, args.ne)) if args.nlev == 72 else None
+    pub = PUBLISHED.get((args.test, args.ne, args.nlev))
     if pub is not None:
         got = (norms.l1, norms.l2, norms.linf, norms.q_max)
         print("published: L1={:8.6f} L2={:8.6f} Linf={:8.6f} q_max={:8.6f} "
