@@ -108,10 +108,9 @@ K1_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(K1_CASES))
-@pytest.mark.parametrize("dtype", ["f32", "f64"])
-def test_k1_edge_shapes_bitwise(cuda, dtype, case):
-    """K1 == fused_advect_limit_plain bitwise at each stage kind."""
+def _k1_case(cuda, dtype, case):
+    """(model, Qt, u, v, divdp, divp, mn, mx, bih, met, max_iter, opt) of
+    one of K1_CASES at ne = 2."""
     nlev, qsize, opt = K1_CASES[case]
     cfg = Config(ne=2, nlev=nlev, qsize=qsize, tstep=1200.0,
                  vcoord="acme72" if nlev == 72 else f"dcmip{nlev}",
@@ -131,6 +130,16 @@ def test_k1_edge_shapes_bitwise(cuda, dtype, case):
     if opt.get("neg"):
         met[0, euler.MET_ROWS.index("spheremp")] *= -1
     max_iter = opt.get("max_iter", 4 if dtype == "f32" else 15)
+    return m, Qt, u, v, divdp, divp, mn, mx, bih, met, max_iter, opt
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k1_edge_shapes_bitwise(cuda, dtype, case):
+    """K1 == fused_advect_limit_plain bitwise at each stage kind."""
+    (m, Qt, u, v, divdp, divp, mn, mx, bih, met, max_iter,
+     opt) = _k1_case(cuda, dtype, case)
+    E = Qt.shape[0]
     idx = torch.as_tensor(opt.get("sel", range(E)), device=cuda)
     pick = lambda t: t.index_select(0, idx).contiguous()  # noqa: E731
     for s in (0, 1, 2):
@@ -153,6 +162,63 @@ def test_k1_edge_shapes_bitwise(cuda, dtype, case):
         if opt.get("neg"):
             # dp_star > 0, so element 0's weights spheremp*dp_star sum < 0
             assert bool(((dp - 600.0 * divdp)[0] > 0).all())
+
+
+def _k1_counted(args, kw, plain=False):
+    """K1 (or its plain version) inside counters.counting(): (outputs, the
+    limiter counts it added)."""
+    counters.work_reset()
+    fn = euler.fused_advect_limit_plain if plain else \
+        euler.fused_advect_limit
+    with counters.counting():
+        out = fn(*args, **kw)
+    return out, counters.work_snapshot()
+
+
+@pytest.mark.parametrize("case", ["e1_lane_groups", "nlev72", "sumc_le0",
+                                  "max_iter1", "max_iter15"])
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k1_counting_form_bitwise_and_counts_plain(cuda, dtype, case):
+    """K1's counting form (launched inside counters.counting()) gives the
+    bits of the form without counting, and the limiter counts of the plain
+    version on the same inputs, over the valid rows."""
+    (m, Qt, u, v, divdp, divp, mn, mx, bih, met, max_iter,
+     opt) = _k1_case(cuda, dtype, case)
+    for s in (0, 1, 2):
+        dp = (m.dp0col[None, None, :] - s * 600.0 * divp).contiguous()
+        args = (Qt, (u, v), dp, divdp, mn, mx, met, m.deriv, 600.0)
+        kw = dict(bih=bih if s == 2 else None, nu_coef=-1.08e20,
+                  dp0=m.dp0ref, max_iter=max_iter)
+        counters.work_reset()
+        off = euler.fused_advect_limit(*args, **kw)
+        assert set(counters.work_snapshot().values()) == {0}
+        on, got = _k1_counted(args, kw)
+        _, want = _k1_counted(args, kw, plain=True)
+        for a, b in zip(off, on):
+            assert torch.equal(a, b), (case, s)
+        assert got == want, (case, s)
+        rows = Qt.shape[0] * Qt.shape[2] - (Qt.shape[2] if opt.get("neg")
+                                            else 0)
+        assert got["limiter_rows"] == rows, (case, s, got)
+        assert rows <= got["limiter_passes"] <= rows * max_iter
+    counters.work_reset()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k1_counting_form_ne30(cuda, dtype):
+    """At NE30 (35 tracers, 72 levels) K1's counting form gives the bits
+    of the form without counting and the plain version's counts."""
+    from transport_se_tpu_torch.k1_variants import stage_args
+    for args, kw in stage_args(dtype, cuda):
+        off = euler.fused_advect_limit(*args, **kw)
+        on, got = _k1_counted(args, kw)
+        for a, b in zip(off, on):
+            assert torch.equal(a, b)
+        del off, on
+        _, want = _k1_counted(args, kw, plain=True)
+        assert got == want
+        assert got["limiter_rows"] == args[0].shape[0] * args[0].shape[2]
+    counters.work_reset()
 
 
 def _ppm_columns(E, nq, nk, corrupt=False, seed=0):

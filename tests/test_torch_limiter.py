@@ -181,10 +181,12 @@ def test_k10_builds_with_the_library_and_shares_k1_limiter_body():
     assert "limiter_optim" in counters.KERNELS
     assert "limiter_optim_plain" in counters.COUNTS
     common = (CSRC / "common.cuh").read_text()
-    assert "void limiter_iterate(" in common
+    # it returns the pass at which a column converged (K1's counting form
+    # adds them up)
+    assert "int limiter_iterate(" in common
     # K1 passes a column's 16 points, K10 a quad lane's 4, whose sums
     # row_sum16 completes over the quad: one body, in common.cuh alone
-    assert "void limiter_iterate(T (&x)[P]" in common
+    assert "int limiter_iterate(T (&x)[P]" in common
     assert "row_sum16(r)" in common and "__shfl_xor_sync" in common
     for src in ("euler.cu", "limiter.cu"):
         text = (CSRC / src).read_text()

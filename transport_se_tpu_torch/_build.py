@@ -46,8 +46,9 @@ D = ctypes.c_double
 # C entry points: name -> argtypes (each has an _f32 and an _f64 variant)
 ENTRIES = {
     # qdp u v dp divdp met qmin qmax deriv dp0 bih | out qmin_o qmax_o |
-    # E L nk dt nu_coef bih_mode max_iter tol | stream
-    "tse_fused_advect_limit": [P] * 14 + [I, I, I, D, D, I, I, D, P],
+    # E L nk dt nu_coef bih_mode max_iter tol | stream | counts (null: K1
+    # without counting; else int64 [slots, 3], counters.WORK) slots
+    "tse_fused_advect_limit": [P] * 14 + [I, I, I, D, D, I, I, D, P, P, I],
     # s met deriv | out | E B | stream
     "tse_laplace_wk_t": [P] * 4 + [I, I, P],
     # qdp dp_star dp_ref | out | E nq nk alg | stream

@@ -32,8 +32,10 @@ ended by `torch.cuda.synchronize()`, with CUDA events beside it.  The
 row's value is the median window's rate (not bench.py's best of two);
 stderr also gives the pooled rate, all windows' work over all their wall.
 After the windows
-the run's min_dp must be positive and its state finite, or the bench exits
-1 and prints no rate.
+one subcycle more runs off the clock inside `counters.counting()`, so
+that K1 counts its limiter's passes (stderr: passes a column and the share
+of columns stopped at the cap).  Then the run's min_dp must be positive
+and its state finite, or the bench exits 1 and prints no rate.
 
 Environment, read as bench.py reads it: BENCH_NE (30), BENCH_QSIZE (35),
 BENCH_SUBCYCLES (24), BENCH_PALLAS (1; 0 runs the std-layout f32 path
@@ -125,7 +127,8 @@ def initial_state(m):
 def measure(cfg, subcycles, device, log):
     """Time one row -> dict(E, work (gridpoint-tracers a window), windows
     [(host s, events ms or None)], rates, value (median rate), pooled (all
-    windows' work over all their wall), min_dp, finite, launches, build
+    windows' work over all their wall), min_dp, finite, launches,
+    limiter (counters.WORK over one subcycle after the windows), build
     (s of the kernels' library on the card, the model, the subcycle
     function with its wind basis and the initial state), state_bytes (one
     state) and peak_bytes (the card's
@@ -198,12 +201,20 @@ def measure(cfg, subcycles, device, log):
             + f" ms/subcycle{each}, host {host * 1e3 / subcycles!r} "
             f"ms/subcycle, {work / host!r} gridpoint-tracers/s")
     launches = {k: n for k, n in counters.snapshot().items() if n}
+    # one subcycle more, off the clock, counting K1's limiter work
+    counters.work_reset()
+    with counters.counting():
+        box[0], _, nstep, md = step(box, nstep)
+    mins.append(md)
+    limiter = counters.work_snapshot()
+    counters.work_reset()
     rates = [work / h for h, _ in windows]
     return dict(E=E, work=work, windows=windows, rates=rates,
                 value=statistics.median(rates),
                 pooled=work * len(windows) / sum(h for h, _ in windows),
                 min_dp=float(torch.stack(mins).min()),
                 finite=bool(torch.isfinite(box[0]).all()), launches=launches,
+                limiter=limiter,
                 build=build, state_bytes=state_bytes,
                 peak_bytes=(torch.cuda.max_memory_allocated(device) if cuda
                             else None))
@@ -242,6 +253,13 @@ def main(argv=None) -> int:
             f"min_dp "
             f"{r['min_dp']!r}; finite {r['finite']}; launches "
             + ", ".join(f"{k} {n}" for k, n in r["launches"].items()))
+        lim = r.get("limiter") or {}
+        if lim.get("limiter_rows"):
+            rows = lim["limiter_rows"]
+            log(f"NE{ne} limiter (K1, one subcycle after the windows): "
+                f"{lim['limiter_passes'] / rows!r} passes a column, "
+                f"{100 * lim['limiter_capped'] / rows!r}% capped; "
+                + ", ".join(f"{k} {v}" for k, v in lim.items()))
         if not (r["min_dp"] > 0 and r["finite"]):
             log(f"error: NE{ne}: min_dp {r['min_dp']!r}, finite "
                 f"{r['finite']}: a broken state gives no rate")

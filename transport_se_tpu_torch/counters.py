@@ -1,4 +1,5 @@
-"""Launch counters of the kernels and of their plain PyTorch versions.
+"""Launch counters of the kernels and of their plain PyTorch versions, and
+the work counters of K1's limiter.
 
 Each kernel wrapper adds one to its kernel's count where it launches the
 kernel; each plain version adds one to its own count where it runs.  A run
@@ -6,9 +7,23 @@ resets the counts, drives the main path and reads them back to show which
 implementation the path went through.  The counts are shared by every
 thread of the process (the shards of a `parallel.comm.ThreadComm` run each
 in a thread of their own), so `bump` adds under a lock.
+
+The work counters (WORK) are counted on the device, and only inside a
+`counting()` scope, which no run opens by default: there `ops.euler`'s
+fused_advect_limit launches K1's counting form, which adds, over its valid
+tracer-level columns, the limiter's clip-and-spread passes, the columns
+and the columns stopped at the cap unconverged into the device's buffer
+(`work_buffer`, WORK_SLOTS rows that K1's blocks add to in turn), and its
+plain version adds the same numbers by the same rule.  Outside the scope,
+a profiled run included, K1 runs its form without counting.
+`work_snapshot()` waits for the device and sums the rows; `work_reset()`
+zeroes them.
 """
 
+import contextlib
 import threading
+
+import torch
 
 KERNELS = ("fused_advect_limit", "laplace_wk_t", "remap_q_ppm_t",
            "dss_face", "minmax_prep", "neighbor_minmax", "limiter_optim",
@@ -32,3 +47,60 @@ def reset() -> None:
 def snapshot() -> dict:
     with _lock:
         return dict(COUNTS)
+
+
+WORK = ("limiter_passes", "limiter_rows", "limiter_capped")
+WORK_SLOTS = 256
+_work = {}     # device -> int64 [WORK_SLOTS, len(WORK)]
+_counting = 0  # open counting() scopes
+
+
+@contextlib.contextmanager
+def counting():
+    """Count K1's limiter work (WORK) in the scope."""
+    global _counting
+    with _lock:
+        _counting += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _counting -= 1
+
+
+def counting_on() -> bool:
+    """Whether a counting() scope is open."""
+    return _counting > 0
+
+
+def work_buffer(device) -> torch.Tensor:
+    """The work counters of `device` (made zero on first use)."""
+    device = torch.device(device)
+    with _lock:
+        buf = _work.get(device)
+        if buf is None:
+            buf = _work[device] = torch.zeros(
+                (WORK_SLOTS, len(WORK)), dtype=torch.int64, device=device)
+        return buf
+
+
+def work_add(device, counts: torch.Tensor) -> None:
+    """Add counts [len(WORK)] (a tensor on `device`) to its first row."""
+    work_buffer(device)[0].add_(counts)
+
+
+def work_reset() -> None:
+    with _lock:
+        for buf in _work.values():
+            buf.zero_()
+
+
+def work_snapshot() -> dict:
+    """{WORK name: count} summed over every device's rows."""
+    with _lock:
+        bufs = list(_work.values())
+    total = [0] * len(WORK)
+    for buf in bufs:
+        for i, v in enumerate(buf.sum(dim=0).tolist()):
+            total[i] += int(v)
+    return dict(zip(WORK, total))

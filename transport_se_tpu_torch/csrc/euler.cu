@@ -61,6 +61,15 @@
 // exits per column as soon as the column converges: converged columns are
 // fixed points of the clip-redistribute body, so this equals the JAX
 // package's group while_loop and its full unroll.
+//
+// K1 has a counting form (COUNT, launched where the caller passes a
+// counter buffer; ops/euler.py does so inside counters.counting()): over
+// its valid columns it adds the limiter's passes, the columns and the
+// columns stopped at the cap unconverged, reduced in the block and added
+// by one atomic a counter into one of `slots` rows of the buffer (the
+// block's index modulo slots), so that many blocks do not queue on three
+// addresses.  The form without counting carries none of it: its
+// instructions, registers and bits are those of a kernel without counters.
 // Every 16-point sum uses the _sum16 pairwise tree; every 4x4 derivative
 // sums its terms in the JAX roll order (common.cuh).  Built with
 // --fmad=false so each product and sum rounds as in the plain version.
@@ -110,7 +119,33 @@ __device__ __forceinline__ int opaque_zero() {
   return z;
 }
 
-template <typename T, bool BIH>
+// The block's sums of a, b and c added to row (block index % slots) of
+// counts [slots, 3]; every thread of the block calls it.
+__device__ __forceinline__ void count_block(unsigned long long* counts,
+                                            int slots, int a, int b, int c) {
+  __shared__ int part[3][kEulerThreads / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    a += __shfl_down_sync(0xffffffffu, a, off);
+    b += __shfl_down_sync(0xffffffffu, b, off);
+    c += __shfl_down_sync(0xffffffffu, c, off);
+  }
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) {
+    part[0][warp] = a;
+    part[1][warp] = b;
+    part[2][warp] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    unsigned long long sum = 0;
+    for (int w = 0; w < kEulerThreads / 32; ++w) sum += part[threadIdx.x][w];
+    const int64_t slot = (int64_t(blockIdx.y) * gridDim.x + blockIdx.x) % slots;
+    atomicAdd(counts + slot * 3 + threadIdx.x, sum);
+  }
+}
+
+template <typename T, bool BIH, bool COUNT>
 __global__ void __launch_bounds__(kEulerThreads, EulerBlocks<T>::value)
 euler_kernel(const T* __restrict__ qdp, const T* __restrict__ u,
              const T* __restrict__ v, const T* __restrict__ dp,
@@ -120,7 +155,7 @@ euler_kernel(const T* __restrict__ qdp, const T* __restrict__ u,
              const T* __restrict__ bih, T* __restrict__ out,
              T* __restrict__ qmin_out, T* __restrict__ qmax_out, int L,
              int nk, int group_lanes, T dt, T nu_coef, int max_iter,
-             T tol_rel) {
+             T tol_rel, unsigned long long* __restrict__ counts, int slots) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
   T* const srec = sm + kLevel;
@@ -160,6 +195,7 @@ euler_kernel(const T* __restrict__ qdp, const T* __restrict__ u,
 
   // ---- one column per thread and pass over the block's lanes ----
   const T rr = T(kRRearth);
+  [[maybe_unused]] int n_pass = 0, n_cols = 0, n_capped = 0;  // COUNT
   const int lane_end = min(L, int(blockIdx.y + 1) * group_lanes);
   for (int lane = blockIdx.y * group_lanes + threadIdx.x; lane < lane_end;
        lane += blockDim.x) {
@@ -235,10 +271,17 @@ euler_kernel(const T* __restrict__ qdp, const T* __restrict__ u,
     qmin_out[brow] = mn;
     qmax_out[brow] = mx;
     if (!valid) continue;
-    limiter_iterate(x, c, mn, mx, tol_rel * fabs(mass), max_iter);
+    [[maybe_unused]] const int conv =
+        limiter_iterate(x, c, mn, mx, tol_rel * fabs(mass), max_iter);
+    if constexpr (COUNT) {
+      n_pass += conv > 0 ? conv : max_iter;
+      n_cols += 1;
+      n_capped += conv == 0;
+    }
 #pragma unroll
     for (int p = 0; p < 16; ++p) out[base + int64_t(p) * L] = x[p] * c[p];
   }
+  if constexpr (COUNT) count_block(counts, slots, n_pass, n_cols, n_capped);
 }
 
 template <typename T>
@@ -265,14 +308,14 @@ laplace_kernel(const T* __restrict__ s, const T* __restrict__ met,
 
 // K1's launch: a block per element, its lanes split into groups of whole
 // 256-lane passes only when the elements alone would leave SMs idle
-template <typename T, bool BIH>
+template <typename T, bool BIH, bool COUNT>
 int launch_euler_kernel(const void* qdp, const void* u, const void* v,
                         const void* dp, const void* divdp, const void* met,
                         const void* qmin, const void* qmax, const void* deriv,
                         const void* dp0, const void* bih, void* out,
                         void* qmin_o, void* qmax_o, int E, int L, int nk,
                         double dt, double nu_coef, int max_iter, double tol,
-                        cudaStream_t st) {
+                        void* counts, int slots, cudaStream_t st) {
   const size_t smem = euler_smem_elems(nk) * sizeof(T);
   int dev = 0, sms = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -284,7 +327,7 @@ int launch_euler_kernel(const void* qdp, const void* u, const void* v,
   if (err != cudaSuccess) return int(err);
   if (smem > size_t(smem_max)) return int(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(euler_kernel<T, BIH>,
+    err = cudaFuncSetAttribute(euler_kernel<T, BIH, COUNT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(smem));
     if (err != cudaSuccess) return int(err);
@@ -294,11 +337,12 @@ int launch_euler_kernel(const void* qdp, const void* u, const void* v,
   const int groups = E >= want ? 1 : std::min(passes, (want + E - 1) / E);
   const int group_lanes = (passes + groups - 1) / groups * kEulerThreads;
   const dim3 grid(E, (L + group_lanes - 1) / group_lanes);
-  euler_kernel<T, BIH><<<grid, kEulerThreads, smem, st>>>(
+  euler_kernel<T, BIH, COUNT><<<grid, kEulerThreads, smem, st>>>(
       (const T*)qdp, (const T*)u, (const T*)v, (const T*)dp, (const T*)divdp,
       (const T*)met, (const T*)qmin, (const T*)qmax, (const T*)deriv,
       (const T*)dp0, (const T*)bih, (T*)out, (T*)qmin_o, (T*)qmax_o, L, nk,
-      group_lanes, T(dt), T(nu_coef), max_iter, T(tol));
+      group_lanes, T(dt), T(nu_coef), max_iter, T(tol),
+      (unsigned long long*)counts, slots);
   return int(cudaGetLastError());
 }
 
@@ -309,14 +353,18 @@ int launch_euler(const void* qdp, const void* u, const void* v,
                  const void* dp0, const void* bih, void* out, void* qmin_o,
                  void* qmax_o, int E, int L, int nk, double dt,
                  double nu_coef, int bih_mode, int max_iter, double tol,
-                 void* stream) {
-  if (E <= 0 || L <= 0 || nk <= 0 || (bih_mode != 0 && bih_mode != 2))
+                 void* stream, void* counts, int slots) {
+  if (E <= 0 || L <= 0 || nk <= 0 || (bih_mode != 0 && bih_mode != 2) ||
+      (counts != nullptr && slots <= 0))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (bih_mode == 2 ? launch_euler_kernel<T, true>
-                        : launch_euler_kernel<T, false>)(
+  const bool bih2 = bih_mode == 2, count = counts != nullptr;
+  return (bih2 ? (count ? launch_euler_kernel<T, true, true>
+                        : launch_euler_kernel<T, true, false>)
+               : (count ? launch_euler_kernel<T, false, true>
+                        : launch_euler_kernel<T, false, false>))(
       qdp, u, v, dp, divdp, met, qmin, qmax, deriv, dp0, bih, out, qmin_o,
-      qmax_o, E, L, nk, dt, nu_coef, max_iter, tol, st);
+      qmax_o, E, L, nk, dt, nu_coef, max_iter, tol, counts, slots, st);
 }
 
 template <typename T>
@@ -338,10 +386,11 @@ int launch_laplace(const void* s, const void* met, const void* deriv,
                       const void* dp0, const void* bih, void* out,           \
                       void* qmin_o, void* qmax_o, int E, int L, int nk,      \
                       double dt, double nu_coef, int bih_mode, int max_iter, \
-                      double tol, void* stream) {                            \
+                      double tol, void* stream, void* counts, int slots) {   \
     return launch_euler<T>(qdp, u, v, dp, divdp, met, qmin, qmax, deriv,     \
                            dp0, bih, out, qmin_o, qmax_o, E, L, nk, dt,      \
-                           nu_coef, bih_mode, max_iter, tol, stream);        \
+                           nu_coef, bih_mode, max_iter, tol, stream, counts, \
+                           slots);                                           \
   }
 
 EULER_ENTRY(tse_fused_advect_limit_f32, float)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import shutil
 import statistics
 import subprocess
@@ -110,16 +111,28 @@ def build_variants(other=None):
         sources["other"] = (Path(other), ())
     libs, logs = build_libs(OUT, "euler.cu", sources,
                             ("tse_fused_advect_limit",))
+    for name, (csrc, _) in sources.items():
+        if "void* counts" not in (Path(csrc) / "euler.cu").read_text():
+            # a tree from before K1's counting form: its entry ends at the
+            # stream
+            for suffix in ("_f32", "_f64"):
+                getattr(libs[name], "tse_fused_advect_limit" + suffix) \
+                    .argtypes = _build.ENTRIES["tse_fused_advect_limit"][:-2]
+            libs[name].counted = False
     return libs, {name: euler_usage(log) for name, log in logs.items()}
 
 
 def euler_usage(log):
-    """'f32 80r/20B, f32+bih ...': registers and spill stores of K1."""
+    """'f32 80r/20B, f32+bih ..., f32+count ...': registers and spill
+    stores of K1 in each form (+count: the counting form)."""
     out, cur, spill = [], None, "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln and "euler_kernel" in ln:
-            t = "f32" if "euler_kernelIf" in ln else "f64"
-            cur = t + ("+bih" if "Lb1E" in ln else "")
+            form = re.search(r"euler_kernelI([fd])Lb([01])E(?:Lb([01])E)?",
+                             ln)
+            cur = (("f32" if form[1] == "f" else "f64")
+                   + ("+bih" if form[2] == "1" else "")
+                   + ("+count" if form[3] == "1" else ""))
         elif cur and "bytes spill stores" in ln:
             spill = ln.split("bytes spill stores")[0].split(",")[-1].strip()
         elif cur and "Used" in ln and "registers" in ln:
@@ -144,7 +157,8 @@ def launch(lib, Qt, uv, dp, divdp, qmin, qmax, met, deriv, dt, bih=None,
               None if bih is None else bih.data_ptr(), out.data_ptr(),
               mn.data_ptr(), mx.data_ptr(), E, L, dp.shape[-1], float(dt),
               float(nu_coef), 0 if bih is None else 2, int(max_iter),
-              euler.TOL_LIMITER, euler._stream(Qt.device))
+              euler.TOL_LIMITER, euler._stream(Qt.device),
+              *((None, 0) if getattr(lib, "counted", True) else ()))
     _build.check(code, "fused_advect_limit variant")
     return out, mn, mx
 

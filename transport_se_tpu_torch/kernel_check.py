@@ -10,14 +10,14 @@ from the repo root, on a CUDA device; under a checker, e.g.
     compute-sanitizer --tool racecheck python -m transport_se_tpu_torch.kernel_check --only K3
 
 It builds an NE8 face model in f32 and in f64 (perf_config), and launches
-on each: K1 at its three stage kinds, K2, K3 at alg 0 and 2, K4 in its
-seven launch cases, K5, K6, then one face subcycle; K7 in its four
-variants on every shard of an S = 2 band shard set; K10 on the NE8 std
-path's stage 0; then one face subcycle of NE120's full production
-configuration (perf_config(120, f32), 35 tracers x 72 levels: E*16*L =
-3.48e9 values, every offset of K1, K3, K4, K5 past 2^31; K6's tiles
-divide the face evenly).  --only K3 launches K3 alone (both NE8 models).
---builds N
+on each: K1 at its three stage kinds (without and with counting), K2, K3
+at alg 0 and 2, K4 in its seven launch cases, K5, K6, then one face
+subcycle; K7 in its four variants on every shard of an S = 2 band shard
+set; K10 on the NE8 std path's stage 0; then one face subcycle of NE120's
+full production configuration (perf_config(120, f32), 35 tracers x 72
+levels: E*16*L = 3.48e9 values, every offset of K1, K3, K4, K5 past 2^31;
+K6's tiles divide the face evenly).  --only K3 launches K3 alone (both NE8
+models).  --builds N
 first builds the NE30 f32 face model, its wind basis (K4) and its limiter
 bounds (K5, K6) N times, each followed by a synchronize (run it with
 CUDA_LAUNCH_BLOCKING=1 to stop at the launch that faults).  Prints one line
@@ -58,6 +58,10 @@ def check_face(dtype, dev, ne=8):
     for s, (args, kw) in enumerate(stages):
         out = euler.fused_advect_limit(*args, **kw)
         sync(f"{dtype} K1 stage {s}")
+        # the counting form, which K1 launches inside counters.counting()
+        with counters.counting():
+            euler.fused_advect_limit(*args, **kw)
+        sync(f"{dtype} K1 stage {s}, counting")
     x = out[0]
     cfg = perf_config(ne, dtype=dtype, use_pallas=True)
     m = core.build_model(cfg, dev)

@@ -60,6 +60,7 @@ from ..ops.euler import (MAX_ITER, fused_advect_limit,
 from ..ops.limiter import limiter_optim_stage
 from ..ops.ppm import ppm_fast_margin, remap_q_ppm, remap_q_ppm_general
 from ..ops.remap import remap_q_ppm_t, remap_q_ppm_t_plain
+from ..timing import span
 from . import dcmip
 
 
@@ -344,96 +345,112 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
     to that stage.
     Returns (Qt', qmin', qmax', ((next_qmin, next_qmax), next_lap) or
     None)."""
-    cfg = m.cfg
-    tb = m.tables
-    Qt, qmin, qmax, pre_minmax, pre_lap = map(
-        _take, (Qt, qmin, qmax, pre_minmax, pre_lap))
-    E, _, L = Qt.shape
-    nq, nk = cfg.qsize, cfg.nlev
-    advect, laplace, _ = _kernels(plain)
-    dp_t = m.dp0col[None, None, :] - rhs_multiplier * dt * divdp_proj_t
-    rsp16 = m.rspheremp.reshape(E, 16)
+    with span("stage"):
+        cfg = m.cfg
+        tb = m.tables
+        Qt, qmin, qmax, pre_minmax, pre_lap = map(
+            _take, (Qt, qmin, qmax, pre_minmax, pre_lap))
+        E, _, L = Qt.shape
+        nq, nk = cfg.qsize, cfg.nlev
+        advect, laplace, _ = _kernels(plain)
+        rsp16 = m.rspheremp.reshape(E, 16)
 
-    if pre_minmax is None:
-        qmin_l, qmax_l = tb.minmax_prep(Qt, dp_t, nq, plain=plain)
-    else:
-        qmin_l, qmax_l = pre_minmax
-    pre_minmax = None
+        with span("stage.bounds"):
+            dp_t = (m.dp0col[None, None, :]
+                    - rhs_multiplier * dt * divdp_proj_t)
+            if pre_minmax is None:
+                qmin_l, qmax_l = tb.minmax_prep(Qt, dp_t, nq, plain=plain)
+            else:
+                qmin_l, qmax_l = pre_minmax
+            pre_minmax = None
+            if rhs_multiplier == 1:
+                qmin = torch.minimum(qmin, qmin_l)
+                qmax = torch.maximum(qmax, qmax_l)
+            else:
+                # stages 0 and 2 take fresh neighbour bounds: the inputs
+                # are dead
+                qmin = qmax = None
+                qmin, qmax = tb.neighbor_minmax(qmin_l, qmax_l, plain=plain)
+            del qmin_l, qmax_l
 
-    bih, nu_coef = None, 0.0
-    if rhs_multiplier == 1:
-        qmin = torch.minimum(qmin, qmin_l)
-        qmax = torch.maximum(qmax, qmax_l)
-    else:
-        # stages 0 and 2 take fresh neighbour bounds: the inputs are dead
-        qmin = qmax = None
-        qmin, qmax = tb.neighbor_minmax(qmin_l, qmax_l, plain=plain)
-    del qmin_l, qmax_l
-    if rhs_multiplier == 2:
-        rhs_viss = 3
-        if cfg.nu_q > 0:
-            # biharmonic: laplace -> DSS -> rspheremp here; the second
-            # Laplacian and the tendency run inside the fused kernel.  The
-            # face mode's stage-1 DSS already produced the first Laplacian.
-            nu_coef = float(-rhs_viss * dt * cfg.nu_q)
-            if pre_lap is None:
-                Q_t = (Qt.reshape(E, 16, nq, nk)
-                       / dp_t[:, :, None, :]).reshape(E, 16, L)
-                pre_lap = laplace(Q_t, m.met, m.deriv)
-                del Q_t
-            bih = tb.dss_scale_t(pre_lap, rsp16, plain=plain)
-    pre_lap = None
+        bih, nu_coef = None, 0.0
+        if rhs_multiplier == 2:
+            rhs_viss = 3
+            if cfg.nu_q > 0:
+                # biharmonic: laplace -> DSS -> rspheremp here; the second
+                # Laplacian and the tendency run inside the fused kernel.
+                # The face mode's stage-1 DSS already produced the first
+                # Laplacian.
+                nu_coef = float(-rhs_viss * dt * cfg.nu_q)
+                with span("stage.hypervis"):
+                    if pre_lap is None:
+                        Q_t = (Qt.reshape(E, 16, nq, nk)
+                               / dp_t[:, :, None, :]).reshape(E, 16, L)
+                        pre_lap = laplace(Q_t, m.met, m.deriv)
+                        del Q_t
+                    bih = tb.dss_scale_t(pre_lap, rsp16, plain=plain)
+        pre_lap = None
 
-    kw = dict(nu_coef=nu_coef, dp0=m.dp0ref,
-              max_iter=cfg.limiter_iter_cap or MAX_ITER)
-    def advect_on(pick):
-        """K1 on the elements pick(a) selects of every per-element operand."""
-        def cut(a):
-            return None if a is None else pick(a)
-        return advect(cut(Qt), (cut(uv_t[0]), cut(uv_t[1])), cut(dp_t),
-                      cut(divdp_t), cut(qmin), cut(qmax), cut(m.met),
-                      m.deriv, float(dt), bih=cut(bih), **kw)
+        kw = dict(nu_coef=nu_coef, dp0=m.dp0ref,
+                  max_iter=cfg.limiter_iter_cap or MAX_ITER)
 
-    nb = getattr(tb, "nbound", 0)
-    if 0 < nb < E:
-        # boundary/interior split (boundary-first element order; JAX
-        # core.py:322-350): K1 on the boundary group, whose output alone
-        # feeds the halo rounds; the exchange is started before K1 runs on
-        # the interior, so a communicator that exchanges beside the device
-        # (DistComm) carries it while the interior computes.  Leading-
-        # dimension slices stay contiguous, and K1's per-column results do
-        # not depend on which elements share its launch, so the split
-        # changes no bit.
-        out_b, qmin_b, qmax_b = advect_on(lambda a: a[:nb])
-        pending = tb.halo_start(out_b)
-        out_i, qmin_i, qmax_i = advect_on(lambda a: a[nb:])
+        def advect_on(pick):
+            """K1 on the elements pick(a) selects of every per-element
+            operand."""
+            def cut(a):
+                return None if a is None else pick(a)
+            with span("stage.advect"):
+                return advect(cut(Qt), (cut(uv_t[0]), cut(uv_t[1])),
+                              cut(dp_t), cut(divdp_t), cut(qmin), cut(qmax),
+                              cut(m.met), m.deriv, float(dt), bih=cut(bih),
+                              **kw)
+
+        nb = getattr(tb, "nbound", 0)
+        if 0 < nb < E:
+            # boundary/interior split (boundary-first element order; JAX
+            # core.py:322-350): K1 on the boundary group, whose output
+            # alone feeds the halo rounds; the exchange is started before
+            # K1 runs on the interior, so a communicator that exchanges
+            # beside the device (DistComm) carries it while the interior
+            # computes.  Leading-dimension slices stay contiguous, and K1's
+            # per-column results do not depend on which elements share its
+            # launch, so the split changes no bit.
+            out_b, qmin_b, qmax_b = advect_on(lambda a: a[:nb])
+            with span("stage.dss"):
+                pending = tb.halo_start(out_b)
+            out_i, qmin_i, qmax_i = advect_on(lambda a: a[nb:])
+            Qt = bih = None
+            with span("stage.dss"):
+                res = (tb.dss_sum_t_split(out_b, out_i, pending)
+                       * rsp16[:, :, None])
+                if avg_t is not None:
+                    res = (avg_t + 2.0 * res) / 3.0
+                # the next stage's bound prep stays unfused: it runs
+                # minmax_prep
+                return (res, torch.cat([qmin_b, qmin_i]),
+                        torch.cat([qmax_b, qmax_i]), None)
+        out_t, qmin_o, qmax_o = advect_on(lambda a: a)
+        dss_kw = {}
+        if tb.overlap_face:
+            # face+overlap composition (JAX core.py:358-380): the stage
+            # once more on the boundary group alone (the elements some
+            # peer needs) gives the halo payload xb.  K1's per-column
+            # results do not depend on which elements share its launch, so
+            # xb is bitwise out_t[bidx] and the assembly is unchanged; the
+            # payload depends only on the small launch.
+            dss_kw["xb"] = advect_on(lambda a: a.index_select(0, tb.bidx))[0]
+        # the stage's input and hyperviscosity input are dead after K1
         Qt = bih = None
-        res = tb.dss_sum_t_split(out_b, out_i, pending) * rsp16[:, :, None]
-        if avg_t is not None:
-            res = (avg_t + 2.0 * res) / 3.0
-        # the next stage's bound prep stays unfused: it runs minmax_prep
-        return (res, torch.cat([qmin_b, qmin_i]), torch.cat([qmax_b, qmax_i]),
-                None)
-    out_t, qmin_o, qmax_o = advect_on(lambda a: a)
-    dss_kw = {}
-    if tb.overlap_face:
-        # face+overlap composition (JAX core.py:358-380): the stage once
-        # more on the boundary group alone (the elements some peer needs)
-        # gives the halo payload xb.  K1's per-column results do not
-        # depend on which elements share its launch, so xb is bitwise
-        # out_t[bidx] and the assembly is unchanged; the payload depends
-        # only on the small launch.
-        dss_kw["xb"] = advect_on(lambda a: a.index_select(0, tb.bidx))[0]
-    # the stage's input and hyperviscosity input are dead after K1
-    Qt = bih = None
-    qmin, qmax = qmin_o, qmax_o
-    if next_dp is not None:
-        Qt_new, nmn, nmx, lap = tb.dss_scale_minmax_t(
-            out_t, rsp16, next_dp, nq, avg=avg_t, lap=next_lap, plain=plain,
-            **dss_kw)
-        return Qt_new, qmin, qmax, ((nmn, nmx), lap)
-    Qt_new = tb.dss_scale_t(out_t, rsp16, avg=avg_t, plain=plain, **dss_kw)
-    return Qt_new, qmin, qmax, None
+        qmin, qmax = qmin_o, qmax_o
+        with span("stage.dss"):
+            if next_dp is not None:
+                Qt_new, nmn, nmx, lap = tb.dss_scale_minmax_t(
+                    out_t, rsp16, next_dp, nq, avg=avg_t, lap=next_lap,
+                    plain=plain, **dss_kw)
+                return Qt_new, qmin, qmax, ((nmn, nmx), lap)
+            Qt_new = tb.dss_scale_t(out_t, rsp16, avg=avg_t, plain=plain,
+                                    **dss_kw)
+            return Qt_new, qmin, qmax, None
 
 
 def advect_rk2_t_parts(m: Model, Qt, uv_t, divdp_t, divdp_proj_t, dt_q,
@@ -482,31 +499,41 @@ def vertical_remap_t(m: Model, Qt, divdp_proj_t, dt_remap, plain=False):
     layer thickness (reference abort :1323) or, with ppm_search="fast", a
     displacement outside the remap's -2..+2 cell window
     (ppm_fast_margin)."""
-    cfg = m.cfg
-    E = Qt.shape[0]
-    dp_star = m.dp0col[None, None, :] - dt_remap * divdp_proj_t
-    ps_v = m.hyai[0] * P0 + dp_star.sum(dim=2)
-    dp_ref = ((m.hyai[1:] - m.hyai[:-1])[None, None, :] * P0
-              + (m.hybi[1:] - m.hybi[:-1])[None, None, :] * ps_v[..., None])
-    if cfg.ppm_search == "general":
-        # the unbounded search (plain PyTorch, as the JAX package's XLA
-        # path); the window guard is advisory, only the thickness counts
-        min_dp = m.tables.global_min(dp_star.min())
-        nq, nk = cfg.qsize, cfg.nlev
-        Qcol = Qt.reshape(E, 16, nq, nk)
-        # element chunks bound the search's [.., k, k+2] working set
-        nc = next((c for c in (8, 4, 2) if E % c == 0), 1)
-        ec = E // nc
-        Qnew = torch.cat([
-            remap_q_ppm_general(Qcol[i:i + ec], dp_star[i:i + ec],
-                                dp_ref[i:i + ec], alg=cfg.vert_remap_q_alg)
-            for i in range(0, E, ec)]).reshape(Qt.shape)
+    with span("remap"):
+        cfg = m.cfg
+        E = Qt.shape[0]
+        with span("remap.levels"):
+            dp_star = m.dp0col[None, None, :] - dt_remap * divdp_proj_t
+            ps_v = m.hyai[0] * P0 + dp_star.sum(dim=2)
+            dp_ref = ((m.hyai[1:] - m.hyai[:-1])[None, None, :] * P0
+                      + (m.hybi[1:] - m.hybi[:-1])[None, None, :]
+                      * ps_v[..., None])
+        if cfg.ppm_search == "general":
+            # the unbounded search (plain PyTorch, as the JAX package's XLA
+            # path); the window guard is advisory, only the thickness
+            # counts
+            with span("remap.health"):
+                min_dp = m.tables.global_min(dp_star.min())
+            with span("remap.ppm"):
+                nq, nk = cfg.qsize, cfg.nlev
+                Qcol = Qt.reshape(E, 16, nq, nk)
+                # element chunks bound the search's [.., k, k+2] working set
+                nc = next((c for c in (8, 4, 2) if E % c == 0), 1)
+                ec = E // nc
+                Qnew = torch.cat([
+                    remap_q_ppm_general(Qcol[i:i + ec], dp_star[i:i + ec],
+                                        dp_ref[i:i + ec],
+                                        alg=cfg.vert_remap_q_alg)
+                    for i in range(0, E, ec)]).reshape(Qt.shape)
+            return Qnew, ps_v.reshape(E, 4, 4), min_dp
+        with span("remap.health"):
+            health = torch.minimum(dp_star.min(),
+                                   ppm_fast_margin(dp_star, dp_ref))
+            min_dp = m.tables.global_min(health)
+        with span("remap.ppm"):
+            remap = _kernels(plain)[2]
+            Qnew = remap(Qt, dp_star, dp_ref, alg=cfg.vert_remap_q_alg)
         return Qnew, ps_v.reshape(E, 4, 4), min_dp
-    health = torch.minimum(dp_star.min(), ppm_fast_margin(dp_star, dp_ref))
-    min_dp = m.tables.global_min(health)
-    remap = _kernels(plain)[2]
-    Qnew = remap(Qt, dp_star, dp_ref, alg=cfg.vert_remap_q_alg)
-    return Qnew, ps_v.reshape(E, 4, 4), min_dp
 
 
 # ---------------------------------------------------------------------------
@@ -598,28 +625,31 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
 
         def step(Qdp, nstep: int):
             Qdp = _take(Qdp)
-            divdp_proj = None
-            for _ in range(cfg.rsplit):
-                t_wind = t_wind_of(nstep)
-                v = dcmip.winds(cfg.test_case, m.lon, m.lat, m.etam, t_wind)
-                vn0 = v * m.dp0col[None, :, None, None, None]
-                if cfg.qsplit != 1:
-                    vn0 = vn0 * ur_w[nstep % cfg.qsplit]
-                eta = omg = None
-                if diagnostics:
-                    eta = dcmip.eta_dot_dpdn(cfg.test_case, m.lon, m.lat,
-                                             m.etai, t_wind)[:, :cfg.nlev]
-                    # omega_p = (-g rho w)/p at midpoints
-                    # (dcmip_wrapper:253,197)
-                    omg = dcmip.eta_dot_dpdn(cfg.test_case, m.lon, m.lat,
-                                             m.etam, t_wind) \
-                        / (P0 * m.etam[None, :, None, None])
-                Qdp, divdp_proj, _, _ = advect_rk2(m, Qdp, vn0, dt_q, eta,
-                                                   omg, plain=plain)
-                nstep = nstep + 1
-            Qdp, ps_v, _, min_dp = vertical_remap(m, Qdp, divdp_proj,
-                                                  dt_remap)
-            return Qdp, ps_v, nstep, min_dp
+            with span("subcycle"):
+                divdp_proj = None
+                for _ in range(cfg.rsplit):
+                    t_wind = t_wind_of(nstep)
+                    v = dcmip.winds(cfg.test_case, m.lon, m.lat, m.etam,
+                                    t_wind)
+                    vn0 = v * m.dp0col[None, :, None, None, None]
+                    if cfg.qsplit != 1:
+                        vn0 = vn0 * ur_w[nstep % cfg.qsplit]
+                    eta = omg = None
+                    if diagnostics:
+                        eta = dcmip.eta_dot_dpdn(
+                            cfg.test_case, m.lon, m.lat, m.etai,
+                            t_wind)[:, :cfg.nlev]
+                        # omega_p = (-g rho w)/p at midpoints
+                        # (dcmip_wrapper:253,197)
+                        omg = dcmip.eta_dot_dpdn(cfg.test_case, m.lon, m.lat,
+                                                 m.etam, t_wind) \
+                            / (P0 * m.etam[None, :, None, None])
+                    Qdp, divdp_proj, _, _ = advect_rk2(m, Qdp, vn0, dt_q,
+                                                       eta, omg, plain=plain)
+                    nstep = nstep + 1
+                Qdp, ps_v, _, min_dp = vertical_remap(m, Qdp, divdp_proj,
+                                                      dt_remap)
+                return Qdp, ps_v, nstep, min_dp
 
         return step
 
@@ -630,28 +660,34 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
         # a tensor stays the caller's; a one-element list hands it over
         box = Qt if isinstance(Qt, list) else [Qt]
         del Qt
-        E = box[0].shape[0]
-        # contiguous: the next step's stage-0 dp of the bound-prep kernels
-        dp0_t = m.dp0col[None, None, :].expand(E, 16, cfg.nlev).contiguous()
-        divdp_proj_t = None
-        mm0 = [None]     # a step's stage-0 bound prep, from the step before
-        for i in range(cfg.rsplit):
-            _, _, un0_t, vn0_t, divdp_t, divdp_proj_t = wb.eval(
-                t_wind_of(nstep))
-            if cfg.qsplit != 1:
-                w = ur_w[nstep % cfg.qsplit]
-                un0_t, vn0_t = un0_t * w, vn0_t * w
-                divdp_t, divdp_proj_t = divdp_t * w, divdp_proj_t * w
-            # step i's stage-3 output bounds over dp0 are step i+1's
-            # stage-0 prep (stage-0 dp is the static dp0)
-            nd = dp0_t if i < cfg.rsplit - 1 else None
-            box[0], divdp_proj_t, mm0[0] = advect_rk2_t_parts(
-                m, box, (un0_t, vn0_t), divdp_t, divdp_proj_t, dt_q,
-                pre_minmax0=mm0, next_step_dp=nd, plain=plain)
-            nstep = nstep + 1
-        Qt, ps_v, min_dp = vertical_remap_t(m, _take(box), divdp_proj_t,
-                                            dt_remap, plain=plain)
-        return Qt, ps_v, nstep, min_dp
+        with span("subcycle"):
+            E = box[0].shape[0]
+            # contiguous: the next step's stage-0 dp of the bound-prep
+            # kernels
+            dp0_t = m.dp0col[None, None, :].expand(E, 16,
+                                                   cfg.nlev).contiguous()
+            divdp_proj_t = None
+            mm0 = [None]  # a step's stage-0 bound prep, from the step before
+            for i in range(cfg.rsplit):
+                with span("tracer_step"):
+                    with span("wind"):
+                        _, _, un0_t, vn0_t, divdp_t, divdp_proj_t = wb.eval(
+                            t_wind_of(nstep))
+                        if cfg.qsplit != 1:
+                            w = ur_w[nstep % cfg.qsplit]
+                            un0_t, vn0_t = un0_t * w, vn0_t * w
+                            divdp_t = divdp_t * w
+                            divdp_proj_t = divdp_proj_t * w
+                    # step i's stage-3 output bounds over dp0 are step
+                    # i+1's stage-0 prep (stage-0 dp is the static dp0)
+                    nd = dp0_t if i < cfg.rsplit - 1 else None
+                    box[0], divdp_proj_t, mm0[0] = advect_rk2_t_parts(
+                        m, box, (un0_t, vn0_t), divdp_t, divdp_proj_t, dt_q,
+                        pre_minmax0=mm0, next_step_dp=nd, plain=plain)
+                nstep = nstep + 1
+            Qt, ps_v, min_dp = vertical_remap_t(m, _take(box), divdp_proj_t,
+                                                dt_remap, plain=plain)
+            return Qt, ps_v, nstep, min_dp
 
     if io_layout == "t":
         return subcycle_t

@@ -27,7 +27,7 @@ import torch
 
 from ..constants import RREARTH
 
-from .. import _build
+from .. import _build, counters
 from ..counters import bump
 
 # relative limiter convergence tolerance |addmass| <= tol*|mass|: the
@@ -70,7 +70,8 @@ def _sum16(x):
     return (s[..., 0] + s[..., 1]) + (s[..., 2] + s[..., 3])
 
 
-def limiter_iterate_plain(x, c, minp, maxp, max_iter=MAX_ITER):
+def limiter_iterate_plain(x, c, minp, maxp, max_iter=MAX_ITER,
+                          count=False):
     """Limiter 8 on rows over the last axis of 16 points: the plain
     version of `limiter_iterate` in csrc/common.cuh, which K1 and K10 run.
 
@@ -78,7 +79,11 @@ def limiter_iterate_plain(x, c, minp, maxp, max_iter=MAX_ITER):
     bounds.  The bounds are first relaxed so that each row's mass fits
     between them; then up to max_iter clip-and-redistribute iterations.
     Returns (x', minp', maxp', valid): valid is False for a row whose
-    weights sum to <= 0, whose x' the caller discards."""
+    weights sum to <= 0, whose x' the caller discards.  With count, also
+    conv [...] (int64): as `limiter_iterate` returns it, the pass at which
+    the row converged (1 to max_iter), or 0 for a row that ran max_iter
+    passes unconverged (capped); a mask of the rows still running keeps
+    each row's first converging pass."""
     one = c.new_full((), 1.0)
     sumc = _sum16(c)
     mass = _sum16(c * x)
@@ -88,7 +93,9 @@ def limiter_iterate_plain(x, c, minp, maxp, max_iter=MAX_ITER):
     maxp = torch.where(mass > maxp * safe, mass / safe, maxp)
     tol = TOL_LIMITER * torch.abs(mass)
     lo, hi = minp[..., None], maxp[..., None]
-    for _ in range(max_iter):
+    conv_at = torch.zeros(x.shape[:-1], dtype=torch.int64,
+                          device=x.device) if count else None
+    for it in range(max_iter):
         # clip-residual form: (x - clip(x))*c equals the JAX over/under
         # terms term by term (exactly one of those is non-zero); converged
         # rows are fixed points of the body, so running it on every row
@@ -102,9 +109,22 @@ def limiter_iterate_plain(x, c, minp, maxp, max_iter=MAX_ITER):
                           addmass / torch.where(wsum > 0, wsum, one), 0.0)
         add = torch.where(conv, 0.0, add)[..., None]
         x = torch.where(free, xcl + add, xcl)
+        if count:
+            conv_at = torch.where((conv_at == 0) & conv, it + 1, conv_at)
         if bool((conv | ~valid).all()):
             break
+    if count:
+        return x, minp, maxp, valid, conv_at
     return x, minp, maxp, valid
+
+
+def limiter_counts(conv, valid, max_iter):
+    """[passes, rows, capped] (int64, counters.WORK) over the valid rows,
+    from limiter_iterate_plain's conv: a row converged at pass k ran k
+    passes, a capped row max_iter."""
+    passes = torch.where(conv > 0, conv, max_iter)
+    return torch.stack([(passes * valid).sum(), valid.sum(),
+                        ((conv == 0) & valid).sum()])
 
 
 _ROT = [[(l + d) % 4 for l in range(4)] for d in range(4)]
@@ -195,8 +215,13 @@ def fused_advect_limit_plain(Qt, uv, dp, divdp, qmin, qmax, met, deriv,
     c = _rep(sp * dps, L)
     x = qtens * _rep(one / dps, L)
     # a column [E, 16, L] is a row of the limiter: points to the last axis
-    x, qmin, qmax, valid = limiter_iterate_plain(
-        x.movedim(1, -1), c.movedim(1, -1), qmin, qmax, max_iter)
+    count = counters.counting_on()
+    x, qmin, qmax, valid, *conv = limiter_iterate_plain(
+        x.movedim(1, -1), c.movedim(1, -1), qmin, qmax, max_iter,
+        count=count)
+    if count:
+        counters.work_add(x.device, limiter_counts(conv[0], valid,
+                                                   max_iter))
     out = torch.where(valid[:, None], x.movedim(-1, 1) * c, qtens * sp)
     return out, qmin, qmax
 
@@ -251,7 +276,10 @@ def fused_advect_limit(Qt, uv, dp, divdp, qmin, qmax, met, deriv, dt,
     dt the stage step.  bih [E,16,L]: the DSS'd first Laplacian, whose
     weak Laplacian adds nu_coef*dp0(k)*lap/spheremp (dp0 [nk]).  The lane
     of level k is any lane with lane % nk == k.  max_iter caps the
-    clip-redistribute iterations; every exit keeps column mass.
+    clip-redistribute iterations; every exit keeps column mass.  Inside
+    counters.counting() it launches K1's counting form, which adds the
+    limiter's passes, columns and capped columns into counters.work_buffer
+    (the plain version adds the same numbers).
 
     Returns (spheremp*limited [E,16,L], qmin' [E,L], qmax' [E,L]).
     """
@@ -281,6 +309,7 @@ def fused_advect_limit(Qt, uv, dp, divdp, qmin, qmax, met, deriv, dt,
     qmax_o = torch.empty_like(qmax)
     fn = _build.entry("tse_fused_advect_limit", _DTYPES[f])
     has_bih = bih is not None
+    work = counters.work_buffer(dev) if counters.counting_on() else None
     code = fn(Qt.data_ptr(), u.data_ptr(), v.data_ptr(), dp.data_ptr(),
               divdp.data_ptr(), met.data_ptr(), qmin.data_ptr(),
               qmax.data_ptr(), deriv.data_ptr(),
@@ -288,7 +317,8 @@ def fused_advect_limit(Qt, uv, dp, divdp, qmin, qmax, met, deriv, dt,
               bih.data_ptr() if has_bih else None,
               out.data_ptr(), qmin_o.data_ptr(), qmax_o.data_ptr(),
               E, L, nk, float(dt), float(nu_coef), 2 if has_bih else 0,
-              int(max_iter), TOL_LIMITER, _stream(dev))
+              int(max_iter), TOL_LIMITER, _stream(dev),
+              None if work is None else work.data_ptr(), counters.WORK_SLOTS)
     _build.check(code, "fused_advect_limit")
     bump("fused_advect_limit")
     return out, qmin_o, qmax_o

@@ -21,7 +21,9 @@ The kernel is `csrc/limiter.cu`; it runs the clip-and-redistribute body of
 `csrc/common.cuh` that K1 runs too.  The plain version below runs that
 body's plain version, `ops.euler.limiter_iterate_plain`, which K1's plain
 version runs as well: every 16-point sum is the `_sum16` pairwise tree, so
-kernel and plain version agree to the last bit.
+kernel and plain version agree to the last bit.  K10 does not count the
+limiter's passes (K1 does, inside `counters.counting()`: `counters.WORK`);
+it ignores the body's returned pass.
 
 `limiter_optim_stage` is the std-layout euler stage's call: its weights
 spheremp [E, 16] and thickness dp_star [E, k, 16] are shared by the rows of
