@@ -13,6 +13,9 @@ the result lines):
      with its time against its bound, its registers and spills and its
      launch shape, then its launch-weighted fraction of its bound over the
      12 launches of a face subcycle;
+     the wind kernel bitwise, with its registers and launch shape, timed
+     at the NE30 and NE120 shapes beside its bound, its plain chain and
+     one torch.einsum per field;
      K1 bitwise at each stage kind, and its times at limiter iteration
      caps 1, 2, 4 and 15; K3 bitwise at alg 0 and 2, with its registers,
      shared memory and resident blocks per SM; K5 bitwise on the sphere
@@ -149,11 +152,14 @@ KERNELS = {
                       "transport_se_tpu/ops/pallas_limiter.py:40"),
     "dss_band": ("transport_se_tpu_torch/csrc/band.cu",
                  "transport_se_tpu/ops/pallas_band.py:38"),
+    "wind_eval_t": ("transport_se_tpu_torch/csrc/wind.cu",
+                    "none (transport_se_tpu/model/wind_basis.py "
+                    "WindBasis.eval's einsum, left to XLA)"),
 }
 KEY = {"fused_advect_limit": "K1", "laplace_wk_t": "K2",
        "remap_q_ppm_t": "K3", "dss_face": "K4", "minmax_prep": "K5",
        "neighbor_minmax": "K6", "limiter_optim": "K10",
-       "dss_band": "K7"}
+       "dss_band": "K7", "wind_eval_t": "wind"}
 # the single-device T path's kernels (phase 3); K10 has phase 8, K7 13
 T_KERNELS = tuple(k for k in KERNELS if k not in ("limiter_optim",
                                                    "dss_band"))
@@ -163,13 +169,16 @@ T_KERNELS = tuple(k for k in KERNELS if k not in ("limiter_optim",
 # time average) plus one per DCMIP 1-1 wind term (6) when the subcycle
 # function builds its wind basis; one bound prep per subcycle; neighbor
 # min/max on stages 0 and 2; no weak-Laplacian launch.
-# The T path runs no K10 (K1 limits inside the fused stage).
+# The T path runs no K10 (K1 limits inside the fused stage), and the wind
+# kernel once a step.
 FACE_COUNTS = {"fused_advect_limit": 18, "laplace_wk_t": 0,
                "remap_q_ppm_t": 2, "dss_face": 4 * 6 + 6, "minmax_prep": 2,
-               "neighbor_minmax": 12, "limiter_optim": 0, "dss_band": 0}
+               "neighbor_minmax": 12, "limiter_optim": 0, "dss_band": 0,
+               "wind_eval_t": 6}
 GATHER_COUNTS = {"fused_advect_limit": 18, "laplace_wk_t": 6,
                  "remap_q_ppm_t": 2, "dss_face": 0, "minmax_prep": 0,
-                 "neighbor_minmax": 0, "limiter_optim": 0, "dss_band": 0}
+                 "neighbor_minmax": 0, "limiter_optim": 0, "dss_band": 0,
+                 "wind_eval_t": 6}
 # The sharded face path, per shard and subcycle (rsplit = 3 steps): K7
 # four times a step and six times when the subcycle function builds its
 # wind basis (the DCMIP 1-1 terms); K1 once a stage, twice with the
@@ -188,11 +197,11 @@ K4_SUBCYCLE = {"scale": 3, "minmax": 3, "minmax+lap": 3, "avg+minmax": 2,
                "avg": 1}
 # one face subcycle (phase 17): the 4 face DSS a step and the 6 of the wind
 # basis built with the subcycle function, K1 a stage, K5 once, K6 on
-# stages 0 and 2, K3 once
+# stages 0 and 2, K3 once, the wind kernel a step
 FACE_SUBCYCLE_COUNTS = {"fused_advect_limit": 9, "laplace_wk_t": 0,
                         "remap_q_ppm_t": 1, "dss_face": 4 * 3 + 6,
                         "minmax_prep": 1, "neighbor_minmax": 6,
-                        "limiter_optim": 0, "dss_band": 0}
+                        "limiter_optim": 0, "dss_band": 0, "wind_eval_t": 3}
 PROXY_NE = 42
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ne42_proxy_value",
               "ne42_proxy_vs_baseline"}
@@ -218,12 +227,12 @@ NE120_SLACK = 10 * 2**30
 def gather_shard_counts(S, nsub, overlap):
     """The sharded gather T path, per shard and subcycle: K1 once a stage,
     twice with the boundary-first split; K2 for stage 2's first Laplacian
-    of each step; K3 once; the DSS, bound prep and neighbour bounds are
-    plain gathers."""
+    of each step; K3 once; the wind kernel a step; the DSS, bound prep
+    and neighbour bounds are plain gathers."""
     return {"fused_advect_limit": S * 9 * nsub * (2 if overlap else 1),
             "laplace_wk_t": S * 3 * nsub, "remap_q_ppm_t": S * nsub,
             "dss_face": 0, "minmax_prep": 0, "neighbor_minmax": 0,
-            "limiter_optim": 0, "dss_band": 0}
+            "limiter_optim": 0, "dss_band": 0, "wind_eval_t": S * 3 * nsub}
 
 
 def sharded_counts(S, nsub, overlap):
@@ -231,7 +240,7 @@ def sharded_counts(S, nsub, overlap):
             "fused_advect_limit": S * 9 * nsub * (2 if overlap else 1),
             "minmax_prep": S * 3 * nsub, "remap_q_ppm_t": S * nsub,
             "dss_face": 0, "neighbor_minmax": 0, "laplace_wk_t": 0,
-            "limiter_optim": 0}
+            "limiter_optim": 0, "wind_eval_t": S * 3 * nsub}
 # The std-layout step launches K10 once per stage: 3 per tracer step.
 K10_PER_STEP = 3
 
@@ -266,7 +275,7 @@ CLI_RUNS = (
 # 1e-2 catches a fault of the path, not its f32 roundoff
 VERIFY_TOL = 1e-2
 VERIFY_KERNELS = ("fused_advect_limit", "remap_q_ppm_t", "dss_face",
-                  "minmax_prep", "neighbor_minmax")
+                  "minmax_prep", "neighbor_minmax", "wind_eval_t")
 # the relative tracer-mass drift of a run (the printstate masses); the
 # JAX package's CPU runs show 2e-12 (NE8 1-2) and 5e-13 (NE30 1-2)
 DRIFT_TOL = 1e-11
@@ -485,7 +494,7 @@ def port_modules():
     from transport_se_tpu_torch.model import core, driver, wind_basis
     from transport_se_tpu_torch.norms import history_norms
     from transport_se_tpu_torch.ops import (band, dss_face, euler, limiter,
-                                            remap)
+                                            remap, wind)
     from transport_se_tpu_torch.parallel import (comm, face_sharded, halo,
                                                  sharded)
     return dict(_build=_build, audit_drift=audit_drift, counters=counters,
@@ -495,7 +504,7 @@ def port_modules():
                 perf_config=perf_config, core=core, driver=driver,
                 wind_basis=wind_basis, history_norms=history_norms,
                 band=band, dss_face=dss_face, euler=euler, limiter=limiter,
-                remap=remap,
+                remap=remap, wind=wind,
                 comm=comm, face_sharded=face_sharded, halo=halo,
                 sharded=sharded)
 
@@ -714,18 +723,18 @@ def main():
         E, nk, nq = m.lon.shape[0], cfg.nlev, cfg.qsize
         Qt = _tp(initial_qdp(m), E, nq * nk)
         wb = build_wind_basis(m)
-        _, _, u, v, divdp, divp = wb.eval(
+        u, v, divdp, divp = wb.eval(
             torch.tensor(cfg.tstep, dtype=m.dtype, device=dev))
         dp0 = m.dp0col[None, None, :].expand(E, 16, nk).contiguous()
         mn, mx = m.tables.neighbor_minmax(*m.tables.minmax_prep(Qt, dp0, nq))
-        return Qt, u, v, divdp, divp, mn, mx
+        return Qt, u, v, divdp, divp, mn, mx, wb
 
     def phase3(dtype):
         cfg = perf_config(NE, dtype=dtype, use_pallas=True)
         m = build_model(cfg, dev)
         tb = m.tables
         E, nk, nq = m.lon.shape[0], cfg.nlev, cfg.qsize
-        Qt, u, v, divdp, divp, mn, mx = stage_inputs(m)
+        Qt, u, v, divdp, divp, mn, mx, wb = stage_inputs(m)
         dt2 = cfg.dt_tracer / 2.0
         max_iter = cfg.limiter_iter_cap or euler.MAX_ITER
         rsp16 = m.rspheremp.reshape(E, 16)
@@ -824,6 +833,77 @@ def main():
                 if u.startswith(f"ppm_kernel<{dtype}>")]
         line.append(f"K3 {'; '.join(regs) or 'ptxas report not found'}; "
                     f"{shape['rows']} rows, {shape['threads']} threads, "
+                    f"{shape['smem_bytes']} B shared a block, "
+                    f"{shape['blocks_per_sm']} blocks/SM")
+        # the wind kernel on the model's basis at t = tstep, bit for bit
+        # (-0 included), then at NE120's element count (the basis tiled);
+        # beside it the plain chain, one torch.einsum per field (timed,
+        # used nowhere in the port) and four fill_ of the output bytes (the
+        # card's rate of plain stores).  A launch at NE30 takes about as
+        # long as the host's call, so each is also timed over a burst of
+        # launches back to back.  Bytes: four fields written, the four
+        # bases read once
+        wm = mods["wind"]
+        s_w = wb.time_values(torch.tensor(cfg.tstep, dtype=m.dtype,
+                                          device=dev))
+        nt = wb.u2d.shape[0]
+
+        def burst(fn):
+            def run():
+                for _ in range(BURST):
+                    fn()
+            return timed(torch, run) / BURST
+        for ne_w in (NE, NE120):
+            bases = [a.repeat(1, (ne_w // NE) ** 2, 1)
+                     for a in (wb.u2d, wb.v2d, wb.g2d, wb.gp2d)]
+            wargs = (*bases, s_w, wb.fk, wb.prof, wb.dp0)
+            got, want = wm.wind_eval_t(*wargs), wm.wind_eval_t_plain(*wargs)
+            check(all(torch.equal(bits(torch, a), bits(torch, b))
+                      for a, b in zip(got, want)),
+                  f"{dtype} wind kernel at NE{ne_w} is not bitwise equal to "
+                  "its plain version")
+            fks, prs = wb.fk * s_w[:, None], wb.prof * s_w[:, None]
+            fkw = fks * wb.dp0
+
+            def ein():
+                return [torch.einsum("tep,tk->epk", a, x) for a, x in
+                        zip(bases, (fkw, fkw, prs, prs))]
+            lib_err = max(rel_err(torch, a, b)[1]
+                          for a, b in zip(ein(), got))
+            del want
+            Ew = bases[0].shape[1]
+            nbytes = (4 * Ew * 16 * nk + 4 * nt * Ew * 16
+                      + (2 * nt + 1) * nk + nt) * es
+            nops = Ew * 16 * nk * (4 * (2 * nt - 1) + 2)
+            kern = lambda: wm.wind_eval_t(*wargs)  # noqa: E731
+            plain = lambda: wm.wind_eval_t_plain(*wargs)  # noqa: E731
+            fill = lambda: [o.fill_(1.0) for o in got]  # noqa: E731
+            if ne_w == NE:
+                hold(f"wind NE{NE}", kern, plain, "wind_eval_t", nbytes,
+                     nops)
+                libs["wind_eval_t"] = t_e = timed(torch, ein)
+                t_k, t_p = (times["wind_eval_t"][0][-1],
+                            times["wind_eval_t"][1][-1])
+            else:
+                t_k, t_p = timed(torch, kern), timed(torch, plain)
+                t_e = timed(torch, ein)
+            b = bound(nbytes, nops, dtype)[0]
+            t_b, t_f = burst(kern), burst(fill)
+            line.append(f"wind NE{ne_w} (E={Ew}, T={nt}, K={nk}) bitwise, "
+                        f"{t_k:.4f} ms a launch alone, {t_b:.4f} over "
+                        f"{BURST} back to back, against its bound {b:.4f} "
+                        f"({b / t_b:.1%}); four fill_ of its outputs "
+                        f"{t_f:.4f} ({b / t_f:.1%}); plain chain {t_p:.3f} "
+                        f"ms; one torch.einsum a field {t_e:.3f} ms (rel "
+                        f"{lib_err:.1e} from the kernel)")
+            del bases, wargs, kern, plain, fill, got
+            torch.cuda.empty_cache()
+        shape = wm.kernel_config(nt, nk, Qt.dtype)
+        regs = [u for u in ptxas_usage(_build.BUILD_DIR / "build.log")
+                if u.startswith(f"wind_kernel<{dtype}")]
+        regs = "; ".join(regs) or "ptxas report not found"
+        line.append(f"wind kernel {regs}; {shape['vec']} values a thread a "
+                    f"field, {shape['threads']} threads, "
                     f"{shape['smem_bytes']} B shared a block, "
                     f"{shape['blocks_per_sm']} blocks/SM")
         # K4 in its seven launch cases on a stage output, with the state as
@@ -1407,7 +1487,7 @@ def main():
         cfg13 = m13.cfg
         E, nq, nk = m13.lon.shape[0], cfg13.qsize, cfg13.nlev
         L = nq * nk
-        x, _, _, _, divp, _, _ = stage_inputs(m13)
+        x, _, _, _, divp, *_ = stage_inputs(m13)
         dp1 = (m13.dp0col[None, None, :]
                - cfg13.dt_tracer / 2.0 * divp).contiguous()
         rsp16 = m13.rspheremp.reshape(E, 16)

@@ -19,7 +19,7 @@ from transport_se_tpu_torch.model import core
 from transport_se_tpu_torch.model.core import (_tp, build_model, initial_qdp,
                                                make_subcycle_fn)
 from transport_se_tpu_torch.model.wind_basis import build_wind_basis
-from transport_se_tpu_torch.ops import euler, limiter, remap
+from transport_se_tpu_torch.ops import euler, limiter, remap, wind
 
 pytestmark = pytest.mark.gpu
 
@@ -65,7 +65,7 @@ def test_kernels_match_plain(cuda, dtype):
     cfg = m.cfg
     E, nq, nk = m.lon.shape[0], cfg.qsize, cfg.nlev
     Qt = _tp(initial_qdp(m), E, nq * nk)
-    _, _, u, v, divdp, divp = build_wind_basis(m).eval(
+    u, v, divdp, divp = build_wind_basis(m).eval(
         torch.full((), 1200.0, dtype=m.dtype, device=cuda))
     dp0 = m.dp0col[None, None, :].expand(E, 16, nk)
     mn, mx = m.tables.neighbor_minmax(*m.tables.minmax_prep(Qt, dp0, nq))
@@ -119,7 +119,7 @@ def _k1_case(cuda, dtype, case):
     m = build_model(cfg, cuda)
     E, nq, nk = m.lon.shape[0], qsize, nlev
     Qt = _tp(initial_qdp(m), E, nq * nk)
-    _, _, u, v, divdp, divp = build_wind_basis(m).eval(
+    u, v, divdp, divp = build_wind_basis(m).eval(
         torch.full((), 1200.0, dtype=m.dtype, device=cuda))
     dp0 = m.dp0col[None, None, :].expand(E, 16, nk)
     mn, mx = m.tables.neighbor_minmax(*m.tables.minmax_prep(Qt, dp0, nq))
@@ -316,17 +316,18 @@ def test_subcycle_kernels_match_plain_and_count(cuda, dtype):
     counts = counters.snapshot()
     want = make_subcycle_fn(m, io_layout="t", plain=True)(Qt, 0)[0]
     launches = {"fused_advect_limit": 9, "laplace_wk_t": 3,
-                "remap_q_ppm_t": 1, "limiter_optim": 0}
+                "remap_q_ppm_t": 1, "limiter_optim": 0, "wind_eval_t": 3}
     assert _named(counts, launches) == {
         **launches, **{k + "_plain": 0 for k in launches}}
     _close(got, want)
 
 
 # DCMIP 1-1's wind basis DSSes its 6 terms once, when the subcycle function
-# is made; a face subcycle then runs 4 face DSS per step
+# is made; a face subcycle then runs 4 face DSS and the wind kernel once
+# per step
 FACE_SUBCYCLE = {"fused_advect_limit": 9, "laplace_wk_t": 0,
                  "remap_q_ppm_t": 1, "dss_face": 4 * 3 + 6,
-                 "minmax_prep": 1, "neighbor_minmax": 6}
+                 "minmax_prep": 1, "neighbor_minmax": 6, "wind_eval_t": 3}
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
@@ -338,7 +339,7 @@ def test_face_kernels_match_plain(cuda, dtype):
     Qt = _tp(initial_qdp(m), E, nq * nk)
     avg = Qt.flip(0).contiguous()
     rsp = m.rspheremp.reshape(E, 16)
-    _, _, _, _, _, divp = build_wind_basis(m).eval(
+    *_, divp = build_wind_basis(m).eval(
         torch.full((), 1200.0, dtype=m.dtype, device=cuda))
     dp = (m.dp0col[None, None, :] - 600.0 * divp).contiguous()
     variants = [dict(), dict(dp=dp), dict(dp=dp, lap=True), dict(avg=avg),
@@ -377,11 +378,14 @@ def test_face_subcycle_kernels_match_plain_and_count(cuda, dtype):
     counters.reset()
     want = make_subcycle_fn(m, io_layout="t", plain=True)(Qt, 0)[0]
     counts = counters.snapshot()
-    # plain=True reaches the plain version of every kernel
+    # plain=True reaches the plain version of every kernel; every kernel
+    # follows its plain version's operations, so the subcycles agree bit
+    # for bit
     assert _named(counts, FACE_SUBCYCLE) == {
         **{k: 0 for k in FACE_SUBCYCLE},
         **{k + "_plain": n for k, n in FACE_SUBCYCLE.items()}}
-    _close(got, want)
+    assert torch.equal(_bits(got), _bits(want)), \
+        (got - want).abs().max().item()
 
 
 def test_kernel_wrapper_rejects_bad_inputs(cuda):
@@ -674,6 +678,91 @@ def test_k7_edge_shapes_bitwise(cuda, dtype, case):
         for a, b in zip(got, want):
             assert torch.equal(_bits(a), _bits(b)), (
                 case, sorted(kw), (a - b).abs().max().item())
+
+
+# The wind kernel's cases, each (terms T, elements E, levels K): DCMIP 1-1's
+# and 1-2's bases of an ne = 2 model (T = 6, 2) at 72 and 64 levels, and
+# random bases with a zero term and signed zeros: one element, an element
+# count whose rows do not fill the last block's vectors, levels that are
+# not a multiple of the vector width (the scalar form), more terms than the
+# kernel loads at once (two chunks), and NE30's element count (more
+# vectors than the card's resident threads: the blocks loop)
+WIND_CASES = {
+    "dcmip11_k72": ("dcmip1-1", 72),
+    "dcmip12_k72": ("dcmip1-2", 72),
+    "dcmip11_k64": ("dcmip1-1", 64),
+    "e1": (6, 1, 72),
+    "e7": (6, 7, 72),
+    "e7_k64_t2": (2, 7, 64),
+    "k37": (6, 7, 37),
+    "e1_k37_t2": (2, 1, 37),
+    "k2": (6, 5, 2),
+    "t11": (11, 7, 72),
+    "ne30": (6, 5400, 72),
+}
+
+
+def _wind_args(case, dtype, dev):
+    """(u2d, v2d, g2d, gp2d, s, fk, prof, dp0) of one of WIND_CASES."""
+    spec = WIND_CASES[case]
+    f = torch.float32 if dtype == "f32" else torch.float64
+    if isinstance(spec[0], str):
+        test, nlev = spec
+        cfg = Config(ne=2, nlev=nlev, qsize=1, tstep=1200.0,
+                     vcoord="acme72" if nlev == 72 else f"dcmip{nlev}",
+                     test_case=test, nu_q=6e16, dtype=dtype,
+                     disable_diagnostics=True, use_pallas=True,
+                     dss_mode="face", elem_order="raster")
+        wb = build_wind_basis(build_model(cfg, dev))
+        s = wb.time_values(torch.tensor(5 * 86400.0 + 1200.0, dtype=f,
+                                        device=dev))
+        return (wb.u2d, wb.v2d, wb.g2d, wb.gp2d, s, wb.fk, wb.prof, wb.dp0)
+    T, E, K = spec
+    g = np.random.default_rng(17)
+    r = lambda *sh: torch.tensor(g.standard_normal(sh), dtype=f,  # noqa: E731
+                                 device=dev)
+    u2d, v2d, g2d, gp2d = (r(T, E, 16) for _ in range(4))
+    v2d[0] = 0.0                      # an all-zero term, as DCMIP's v
+    g2d[-1, 0] = -0.0
+    s, fk, prof, dp0 = r(T), r(T, K), r(T, K), r(K)
+    s[-1] = -0.0 if T > 2 else s[-1]
+    return u2d, v2d, g2d, gp2d, s, fk, prof, dp0
+
+
+@pytest.mark.parametrize("case", list(WIND_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_wind_kernel_edge_shapes_bitwise(cuda, dtype, case):
+    """The wind kernel == wind_eval_t_plain bit for bit (-0 and +0
+    apart), one launch a call."""
+    args = _wind_args(case, dtype, cuda)
+    counters.reset()
+    got = wind.wind_eval_t(*args)
+    assert counters.snapshot()["wind_eval_t"] == 1
+    assert counters.snapshot()["wind_eval_t_plain"] == 0
+    want = wind.wind_eval_t_plain(*args)
+    E, K = args[0].shape[1], args[-1].shape[0]
+    for a, b in zip(got, want):
+        assert a.shape == (E, 16, K) and a.is_contiguous()
+        assert torch.equal(_bits(a), _bits(b)), (
+            case, (a - b).abs().max().item())
+
+
+def test_wind_wrapper_rejects_bad_inputs(cuda):
+    args = list(_wind_args("e7", "f32", cuda))
+    bad = {
+        "dtype": (5, args[5].double(), TypeError, "dtype"),
+        "contiguous": (1, args[1].transpose(1, 2).contiguous()
+                       .transpose(1, 2), ValueError, "contiguous"),
+        "T": (4, args[4][:5].contiguous(), ValueError, "shape"),
+        "K": (6, args[6][:, :71].contiguous(), ValueError, "shape"),
+        "device": (7, args[7].cpu(), ValueError, "on cpu"),
+    }
+    for i, arg, err, match in bad.values():
+        counters.reset()
+        with pytest.raises(err, match=match):
+            wind.wind_eval_t(*args[:i], arg, *args[i + 1:])
+        c = counters.snapshot()
+        assert c["wind_eval_t"] == 0 and c["wind_eval_t_plain"] == 0
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])

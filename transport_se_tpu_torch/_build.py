@@ -25,7 +25,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("euler.cu", "ppm.cu", "dss.cu", "limiter.cu", "band.cu")
+SOURCES = ("euler.cu", "ppm.cu", "dss.cu", "limiter.cu", "band.cu",
+           "wind.cu")
 # included by the sources; part of the library's hash
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -80,6 +81,12 @@ ENTRIES = {
     # E L | out[5]: K6's lanes a thread, threads a block, blocks, shared
     # bytes per block, blocks/SM
     "tse_nbr_minmax_config": [I, I, P],
+    # u2d v2d g2d gp2d s fk prof dp0 | un0 vn0 divdp divdp_proj | T E K |
+    # stream
+    "tse_wind_eval_t": [P] * 12 + [I, I, I, P],
+    # T K | out[4]: the wind kernel's values a thread, threads, shared bytes
+    # per block, blocks/SM
+    "tse_wind_config": [I, I, P],
 }
 
 _lock = threading.Lock()

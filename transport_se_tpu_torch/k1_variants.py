@@ -184,7 +184,7 @@ def stage_args(dtype, dev, ne=30):
     m = core.build_model(cfg, dev)
     E, nk, nq = m.lon.shape[0], cfg.nlev, cfg.qsize
     Qt = core._tp(core.initial_qdp(m), E, nq * nk)
-    _, _, u, v, divdp, divp = build_wind_basis(m).eval(
+    u, v, divdp, divp = build_wind_basis(m).eval(
         torch.tensor(cfg.tstep, dtype=m.dtype, device=dev))
     dp0 = m.dp0col[None, None, :].expand(E, 16, nk).contiguous()
     mn, mx = m.tables.neighbor_minmax(*m.tables.minmax_prep(Qt, dp0, nq))

@@ -92,7 +92,7 @@ def remap_args(dtype, dev, ne=30):
     E, nk, nq = m.lon.shape[0], cfg.nlev, cfg.qsize
     Qt = core._tp(core.initial_qdp(m), E, nq * nk)
     divp = build_wind_basis(m).eval(
-        torch.tensor(cfg.tstep, dtype=m.dtype, device=dev))[5]
+        torch.tensor(cfg.tstep, dtype=m.dtype, device=dev))[3]
     dps = (m.dp0col[None, None, :] - cfg.dt_remap * divp).contiguous()
     ps = m.hyai[0] * 1e5 + dps.sum(dim=2)
     dpr = ((m.hyai[1:] - m.hyai[:-1])[None, None, :] * 1e5

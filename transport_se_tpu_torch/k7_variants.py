@@ -191,7 +191,7 @@ def cases(dtype, dev, ne=30):
     E, nq, nk = m.lon.shape[0], cfg.qsize, cfg.nlev
     x = core._tp(core.initial_qdp(m), E, nq * nk)
     divp = build_wind_basis(m).eval(
-        torch.tensor(cfg.tstep, dtype=m.dtype, device=dev))[5]
+        torch.tensor(cfg.tstep, dtype=m.dtype, device=dev))[3]
     dp = (m.dp0col[None, None, :] - cfg.dt_tracer / 2.0 * divp).contiguous()
     rsp = m.rspheremp.reshape(E, 16)
     out = {}

@@ -11,15 +11,16 @@ from the repo root, on a CUDA device; under a checker, e.g.
 
 It builds an NE8 face model in f32 and in f64 (perf_config), and launches
 on each: K1 at its three stage kinds (without and with counting), K2, K3
-at alg 0 and 2, K4 in its seven launch cases, K5, K6, then one face
-subcycle; K7 in its four variants on every shard of an S = 2 band shard
-set; K10 on the NE8 std path's stage 0; then one face subcycle of NE120's
-full production configuration (perf_config(120, f32), 35 tracers x 72
-levels: E*16*L = 3.48e9 values, every offset of K1, K3, K4, K5 past 2^31;
-K6's tiles divide the face evenly).  --only K3 launches K3 alone (both NE8
-models).  --builds N
-first builds the NE30 f32 face model, its wind basis (K4) and its limiter
-bounds (K5, K6) N times, each followed by a synchronize (run it with
+at alg 0 and 2, K4 in its seven launch cases, K5, K6, the wind kernel in
+its vector form (72 levels) and its scalar form (71 levels, one element),
+then one face subcycle; K7 in its four variants on every shard of an S = 2
+band shard set; K10 on the NE8 std path's stage 0; then one face subcycle
+of NE120's full production configuration (perf_config(120, f32), 35
+tracers x 72 levels: E*16*L = 3.48e9 values, every offset of K1, K3, K4,
+K5 past 2^31; K6's tiles divide the face evenly).  --only K3 launches K3
+alone (both NE8 models).  --builds N first builds the NE30 f32 face model,
+its wind basis (K4) and winds (the wind kernel) and its limiter bounds
+(K5, K6) N times, each followed by a synchronize (run it with
 CUDA_LAUNCH_BLOCKING=1 to stop at the launch that faults).  Prints one line
 per launch group and "kernel_check: ok" at the end.
 """
@@ -37,7 +38,7 @@ from .k3_variants import remap_args
 from .k7_variants import halo_rows, shard
 from .model import core
 from .model.wind_basis import build_wind_basis
-from .ops import band, dss_face, euler, limiter, remap
+from .ops import band, dss_face, euler, limiter, remap, wind
 
 
 def sync(what):
@@ -81,6 +82,15 @@ def check_face(dtype, dev, ne=8):
     sync(f"{dtype} K5")
     tb.neighbor_minmax(mn, mx)
     sync(f"{dtype} K6")
+    wb = build_wind_basis(m)
+    s_w = wb.time_values(torch.tensor(cfg.tstep, dtype=m.dtype, device=dev))
+    for e_w, k_w in ((E, nk), (1, nk - 1)):
+        bases = [a[:, :e_w].contiguous()
+                 for a in (wb.u2d, wb.v2d, wb.g2d, wb.gp2d)]
+        wind.wind_eval_t(*bases, s_w, wb.fk[:, :k_w].contiguous(),
+                         wb.prof[:, :k_w].contiguous(),
+                         wb.dp0[:k_w].contiguous())
+    sync(f"{dtype} wind kernel, {E} elements x {nk} levels and 1 x {nk - 1}")
     Qt = core._tp(core.initial_qdp(m), E, nq * nk)
     counters.reset()
     core.make_subcycle_fn(m, io_layout="t")(Qt, 0)
@@ -136,8 +146,8 @@ def check_ne120(dev):
 
 
 def check_builds(n, dev, ne=30):
-    """The NE ne f32 face model, its wind basis (K4) and its limiter bounds
-    (K5, K6), built n times."""
+    """The NE ne f32 face model, its wind basis (K4) and winds (the wind
+    kernel) and its limiter bounds (K5, K6), built n times."""
     for i in range(n):
         m = core.build_model(perf_config(ne, dtype="f32", use_pallas=True),
                              dev)

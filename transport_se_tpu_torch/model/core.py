@@ -671,7 +671,7 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
             for i in range(cfg.rsplit):
                 with span("tracer_step"):
                     with span("wind"):
-                        _, _, un0_t, vn0_t, divdp_t, divdp_proj_t = wb.eval(
+                        un0_t, vn0_t, divdp_t, divdp_proj_t = wb.eval(
                             t_wind_of(nstep))
                         if cfg.qsplit != 1:
                             w = ur_w[nstep % cfg.qsplit]

@@ -6,7 +6,9 @@ into sums of (2D horizontal field) x (vertical profile) x (scalar function
 of t) after expanding the rotating-longitude terms with angle addition.
 Divergence and DSS are linear, so the same basis gives divdp and the
 DSS-projected divdp_proj from per-term divergence fields computed once at
-model build; a step then costs a few broadcast multiply-adds.
+model build; a step then evaluates the basis in one launch of the wind
+kernel (`ops/wind.py`, `csrc/wind.cu`), which writes the four fields the T
+path reads.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from ..constants import DD_PI as PI, P0, REARTH, SCALE_HEIGHT
 
 from ..ops import sphere_ops as so
+from ..ops.wind import wind_eval_t, wind_eval_t_plain
 from . import dcmip
 
 
@@ -34,6 +37,8 @@ class WindBasis:
     prof:    [T, K]      fk * dp0 (the profile of vn0 and of divdp)
     tfns:    scalar time functions, one per term
     dp0:     [K]
+    plain:   evaluate with the plain version (wind_eval_t_plain) on any
+             device
     """
     u2d: torch.Tensor
     v2d: torch.Tensor
@@ -43,35 +48,28 @@ class WindBasis:
     prof: torch.Tensor
     tfns: Sequence[Callable]
     dp0: torch.Tensor
+    plain: bool = False
+
+    def time_values(self, t):
+        """t: 0-dim tensor (model dtype) -> the time functions' values
+        [T], on the device (no host sync)."""
+        return torch.stack([torch.as_tensor(fn(t), dtype=self.dp0.dtype,
+                                            device=self.dp0.device)
+                            for fn in self.tfns])
 
     def eval(self, t):
-        """t: 0-dim tensor (model dtype) -> (u_t, v_t, un0_t, vn0_t,
-        divdp_t, divdp_proj_t), all [E, 16, K]; un0/vn0 carry the dp0
-        weight (the mean-flux vn0)."""
-        s = torch.stack([torch.as_tensor(fn(t), dtype=self.dp0.dtype,
-                                         device=self.dp0.device)
-                         for fn in self.tfns])
-        fks = self.fk * s[:, None]
-        prs = self.prof * s[:, None]
-
-        def contract(a2d, prof):
-            acc = None
-            for i in range(a2d.shape[0]):
-                term = a2d[i][:, :, None] * prof[i][None, None, :]
-                acc = term if acc is None else acc + term
-            return acc
-
-        u = contract(self.u2d, fks)
-        v = contract(self.v2d, fks)
-        d = contract(self.g2d, prs)
-        p = contract(self.gp2d, prs)
-        dp0 = self.dp0[None, None, :]
-        return u, v, u * dp0, v * dp0, d, p
+        """t: 0-dim tensor (model dtype) -> (un0_t, vn0_t, divdp_t,
+        divdp_proj_t), all [E, 16, K]; un0/vn0 carry the dp0 weight (the
+        mean-flux vn0)."""
+        fn = wind_eval_t_plain if self.plain else wind_eval_t
+        return fn(self.u2d, self.v2d, self.g2d, self.gp2d,
+                  self.time_values(t), self.fk, self.prof, self.dp0)
 
 
 def build_wind_basis(m, plain: bool = False) -> WindBasis:
     """Precompute the factored wind basis for m.cfg.test_case (plain:
-    the DSS of the divergence terms runs its plain version).
+    the DSS of the divergence terms and every evaluation run their plain
+    versions).
 
     dcmip1-1 terms (lon' = lon - omega t, C = OMEGA0*REARTH/(BS*ptop)):
       1: (U0 cos(lat), 0)                 x 1    x 1
@@ -159,4 +157,4 @@ def build_wind_basis(m, plain: bool = False) -> WindBasis:
         cols["prof"].append(as_f(fk * dp0))
         tfns.append(tf)
     return WindBasis(**{k: torch.stack(v) for k, v in cols.items()},
-                     tfns=tuple(tfns), dp0=as_f(dp0))
+                     tfns=tuple(tfns), dp0=as_f(dp0), plain=plain)

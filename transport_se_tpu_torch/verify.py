@@ -6,8 +6,8 @@ The port's counterpart of `scripts/verify.py`, with the same flags and the
 same `Config`.  Unlike the CLI (`python -m transport_se_tpu_torch.main`,
 whose namelist has no key for them) it runs the T-layout kernel pipeline
 with --pallas: face DSS on raster order by default, and with limiter 8 the
-fused stage K1, the PPM remap K3 and the face trio K4-K6 (the `launches:`
-line says which kernels ran).
+fused stage K1, the PPM remap K3, the face trio K4-K6 and the wind kernel
+(the `launches:` line says which kernels ran).
 
 Usage:
     python -m transport_se_tpu_torch.verify --test dcmip1-1 --ne 8
