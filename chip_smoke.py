@@ -2,6 +2,7 @@
 """Smoke run of transport_se_tpu_torch on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
+(python3 chip_smoke.py --phase 21: phases 1, 2 and 21 alone)
 
 Phases (each prints one line or two; any failure exits non-zero before
 the result lines):
@@ -95,6 +96,19 @@ the result lines):
      after each subcycle bit for bit against (a)'s; then a third subcycle
      under torch.profiler (device ms by kernel, share of busy, idle); the
      phase's wall
+ 21. NE120 with 35 tracers in f64 at the reference's 15 limiter passes
+     (the benchmark's ne120_perf_f64.q35; 25.96 GiB a state, so the
+     subcycle runs in tracer groups, model/core.py plan_groups): (a) at
+     NE30 f64, a subcycle in forced groups bit for bit against the
+     ungrouped one; (b) the lane kernels on the NE120 state (3.48e9
+     values) bit for bit against their plain versions, and a subcycle's
+     gathers and scatters timed against their bound; (c) one subcycle
+     with the plan, the state handed over: the groups, launch counts,
+     min_dp, finiteness, per-tracer mass change, ms (CUDA events), peak
+     device memory against NE120_F64_MAX_GIB, and tracers 0-1 bit for
+     bit against a 2-tracer ungrouped run; then one more under
+     torch.profiler: device ms by kernel, the lane kernels' ms against
+     their bound, idle
 Then one JSON line of per-kernel results (the launches of K2 from the
 gather run of phase 4, of K10 from the NE30 CLI run of phase 10, of K7
 from the S = 8 run of phase 14, all others from the face run of phase 4;
@@ -217,6 +231,10 @@ GATHER_SUBCYCLES = 3     # phase 18: one warm-up, two timed
 # (model/core.py, tests/test_torch_memory.py); the peak allowed over (b),
 # above what phase 20 held before it, is four states plus NE120_SLACK of
 # winds, bounds and the tracers (b) keeps for the comparison.
+# phase 21: NE120 x 35 tracers in f64, the group plan; the cell's bound on
+# its peak memory; NE30's forced groups
+NE120_F64_MAX_GIB = 75
+NE30_F64_GROUPS = [9, 9, 9, 8]
 NE120 = 120
 NE120_FEW = 2
 NE120_SUBCYCLES = 2
@@ -493,8 +511,8 @@ def port_modules():
     from transport_se_tpu_torch.grid.cubesphere import build_grid
     from transport_se_tpu_torch.model import core, driver, wind_basis
     from transport_se_tpu_torch.norms import history_norms
-    from transport_se_tpu_torch.ops import (band, dss_face, euler, limiter,
-                                            remap, wind)
+    from transport_se_tpu_torch.ops import (band, dss_face, euler, lanes,
+                                            limiter, remap, wind)
     from transport_se_tpu_torch.parallel import (comm, face_sharded, halo,
                                                  sharded)
     return dict(_build=_build, audit_drift=audit_drift, counters=counters,
@@ -503,8 +521,8 @@ def port_modules():
                 dcmip11_ne30=dcmip11_ne30, dcmip12_ne30=dcmip12_ne30,
                 perf_config=perf_config, core=core, driver=driver,
                 wind_basis=wind_basis, history_norms=history_norms,
-                band=band, dss_face=dss_face, euler=euler, limiter=limiter,
-                remap=remap, wind=wind,
+                band=band, dss_face=dss_face, euler=euler, lanes=lanes,
+                limiter=limiter, remap=remap, wind=wind,
                 comm=comm, face_sharded=face_sharded, halo=halo,
                 sharded=sharded)
 
@@ -673,6 +691,178 @@ def phase_ne120(torch, mods, dev, t_start, ne=NE120):
         f"{time.perf_counter() - t_start:.1f} s")
 
 
+def phase_ne120_f64(torch, mods, dev, t_start, ne=NE120):
+    """Phase 21: NE ne with 35 tracers in f64 through the group plan
+    (module docstring).  Fails through check() on any mismatch."""
+    core, counters, lanes = mods["core"], mods["counters"], mods["lanes"]
+    perf_config = mods["perf_config"]
+    t21 = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    # (a) NE30 f64: forced groups against the ungrouped subcycle
+    cfg30 = perf_config(30, dtype="f64", use_pallas=True,
+                        limiter_iter_cap=15)
+    m30 = core.build_model(cfg30, dev)
+    Q0 = core.initial_qdp_t(m30)
+    one = core.make_subcycle_fn(m30, io_layout="t")
+    check(one.groups == [cfg30.qsize],
+          f"NE30 f64 35 tracers: plan {one.groups}, want one group")
+    want = one([Q0.clone()], 0)[0]
+    counters.reset()
+    got = core.make_subcycle_fn(m30, io_layout="t", groups=NE30_F64_GROUPS)(
+        [Q0.clone()], 0)[0]
+    c30 = counters.snapshot()
+    torch.cuda.synchronize()
+    check(torch.equal(bits(torch, got), bits(torch, want)),
+          f"NE30 f64: groups {NE30_F64_GROUPS} differ from one group, max "
+          f"abs {rel_err(torch, got, want)[0]:.3e}")
+    check(c30["lane_gather_t"] == c30["lane_scatter_t"]
+          == len(NE30_F64_GROUPS) and c30["lane_gather_t_plain"] == 0,
+          f"NE30 f64 groups: launches {c30}")
+    del m30, Q0, one, want, got
+    torch.cuda.empty_cache()
+    say(f"phase 21 NE30 f64 35 tracers: a subcycle in groups "
+        f"{NE30_F64_GROUPS} bit for bit equal to one group; lane gathers "
+        f"{c30['lane_gather_t']}, scatters {c30['lane_scatter_t']}")
+
+    # (b) NE120: a 2-tracer ungrouped run, for tracers 0-1 of the plan's
+    cfg = perf_config(ne, dtype="f64", use_pallas=True, limiter_iter_cap=15)
+    m2 = core.build_model(dataclasses.replace(cfg, qsize=NE120_FEW), dev)
+    E, nk, nq = m2.lon.shape[0], cfg.nlev, cfg.qsize
+    few = core.make_subcycle_fn(m2, io_layout="t")([core.initial_qdp_t(m2)],
+                                                   0)[0]
+    m = dataclasses.replace(m2, cfg=cfg)
+    del m2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    X = core.initial_qdp_t(m)
+    state = X.numel() * X.element_size()
+    check(X.numel() > 2**31, f"NE120 state of {X.numel()} values")
+    t0 = time.perf_counter()
+    step = core.make_subcycle_fn(m, io_layout="t")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    groups = step.groups
+    check(len(groups) > 1 and sum(groups) == nq,
+          f"NE{ne} f64 35 tracers: plan {groups}, want groups")
+    lo = (nq - groups[-1]) * nk
+    width = groups[-1] * nk
+    g_k = lanes.lane_gather(X, lo, width)
+    g_p = lanes.lane_gather_plain(X, lo, width)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(torch, g_k), bits(torch, g_p)),
+          "lane_gather differs from its plain version at the last group")
+    del g_p
+    Y = torch.zeros_like(X)
+    lanes.lane_scatter(g_k, Y, lo)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(torch, Y[:, :, lo:]), bits(torch, g_k))
+          and not bool(Y[:, :, :lo].any()),
+          "lane_scatter: the last group's lanes are not as written")
+    del g_k
+
+    def copies():
+        """A subcycle's lane copies: each group gathered and scattered."""
+        a = 0
+        for g in groups:
+            lanes.lane_scatter(lanes.lane_gather(X, a * nk, g * nk), Y,
+                               a * nk)
+            a += g
+    lane_ms = timed(torch, copies)
+    lane_bound = 4 * state / HBM_BYTES_PER_S * 1e3
+    check(torch.equal(bits(torch, Y), bits(torch, X)),
+          "a subcycle's lane copies do not give the state back")
+    del Y
+    torch.cuda.empty_cache()
+    say(f"phase 21 NE{ne} f64 lane kernels on the 35-tracer state "
+        f"({X.numel()} values, {state / 2**30:.2f} GiB): gather and "
+        f"scatter bit for bit equal to their plain versions; a subcycle's "
+        f"copies in groups {groups}: {lane_ms:.3f} ms against their bound "
+        f"{lane_bound:.3f} ms ({lane_bound / lane_ms:.1%})")
+
+    # (c) one subcycle with the plan, the state handed over
+    sp16 = m.spheremp.reshape(E, 16)
+
+    def masses(Qt):
+        v = Qt.view(E, 16, nq, nk)
+        return torch.stack([(v[:, :, i] * sp16[:, :, None]).sum()
+                            for i in range(nq)])
+    mass0 = masses(X)
+    box = [X]
+    del X
+    counters.reset()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    box[0], _, nstep, md = step(box, 0)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b)
+    c = counters.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(box[0]).all())
+    dmass = ((masses(box[0]) - mass0).abs() / mass0.abs()).max().item()
+    same = torch.equal(
+        bits(torch, box[0].view(E, 16, nq, nk)[:, :, :NE120_FEW]),
+        bits(torch, few.view(E, 16, NE120_FEW, nk)))
+    del few
+    check(c["lane_gather_t"] == c["lane_scatter_t"] == len(groups)
+          and c["fused_advect_limit"] == 9 * len(groups)
+          and c["remap_q_ppm_t"] == len(groups) and c["wind_eval_t"] == 3,
+          f"NE{ne} f64 groups {groups}: launches {c}")
+    check(finite and float(md) > 0, f"NE{ne} f64: finite {finite}, min_dp "
+          f"{float(md)}")
+    check(dmass < MASS_TOL, f"NE{ne} f64: mass change {dmass:.3e}")
+    check(same, f"NE{ne} f64: tracers 0-{NE120_FEW - 1} of the grouped "
+          f"35-tracer subcycle differ from the {NE120_FEW}-tracer run")
+    check(peak <= NE120_F64_MAX_GIB * 2**30,
+          f"NE{ne} f64: peak {peak / 2**30:.2f} GiB > {NE120_F64_MAX_GIB}")
+    say(f"phase 21 NE{ne} f64 35 tracers, limiter cap 15, groups {groups} "
+        f"(planned in {build_s:.2f} s with the wind basis): one subcycle "
+        f"{ms:.3f} ms; launches " + ", ".join(
+            f"{k} {v}" for k, v in c.items() if v)
+        + f"; min_dp {float(md):.6g}; finite; per-tracer relative mass "
+        f"change max {dmass:.3e}; tracers 0-{NE120_FEW - 1} bit for bit "
+        f"equal to the {NE120_FEW}-tracer ungrouped run; peak allocated "
+        f"{peak / 2**30:.2f} GiB ({(peak - at_start) / 2**30:.2f} above the "
+        f"{at_start / 2**30:.2f} held before; allowed {NE120_F64_MAX_GIB})")
+
+    # one more under torch.profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as pr:
+        box[0], _, nstep, _ = step(box, nstep)
+        torch.cuda.synchronize()
+    by_name, busy, span = device_ms(pr, DeviceType.CUDA, "phase 21")
+    # and one more counting K1's limiter work (counters.WORK)
+    counters.work_reset()
+    with counters.counting():
+        box[0] = step(box, nstep)[0]
+        work = counters.work_snapshot()
+    rows = max(work["limiter_rows"], 1)
+    del box, step, pr, m
+    torch.cuda.empty_cache()
+    lane_dev = by_name.get("lane_gather_kernel", 0.0) \
+        + by_name.get("lane_scatter_kernel", 0.0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    rest = sum(t for _, t in top[N_NAMES:])
+    say(f"phase 21 NE{ne} f64 35-tracer subcycle in groups under "
+        f"torch.profiler: device span {span:.2f} ms, busy {busy:.2f} ms, "
+        f"idle {1 - busy / span:.2%}; lane kernels {lane_dev:.3f} ms against "
+        f"their bound {lane_bound:.3f} "
+        f"({lane_bound / max(lane_dev, 1e-9):.1%}); device ms by kernel "
+        "(share of busy): "
+        + ", ".join(f"{k} {t:.2f} ({t / busy:.1%})" for k, t in top[:N_NAMES])
+        + f", {max(0, len(top) - N_NAMES)} others {rest:.2f}; K1's limiter "
+        f"in the third subcycle: {work['limiter_passes'] / rows:.4f} passes "
+        f"a column, {work['limiter_capped'] / rows:.4%} of "
+        f"{work['limiter_rows']} columns stopped at the cap of 15; phase "
+        f"wall {time.perf_counter() - t21:.1f} s; chip_smoke wall "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -714,6 +904,13 @@ def main():
     build_s = time.perf_counter() - t0
     say(f"phase 2 build: {build_s:.1f} s (0 if cached); ptxas: "
         + "; ".join(ptxas_usage(_build.BUILD_DIR / "build.log")))
+
+    if sys.argv[1:] == ["--phase", "21"]:
+        phase_ne120_f64(torch, mods, dev, t_start)
+        print(card)
+        return
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}: the one "
+          "option is --phase 21")
 
     # ---- 3. each kernel against its plain version at NE30 shapes ---------
     results = {k: {} for k in KERNELS}
@@ -1944,6 +2141,9 @@ def main():
 
     # ---- 20. NE120 at full size on one card -----------------------------
     phase_ne120(torch, mods, dev, t_start)
+
+    # ---- 21. NE120 x 35 tracers in f64: the group plan -------------------
+    phase_ne120_f64(torch, mods, dev, t_start)
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k], **results[k])

@@ -52,11 +52,12 @@ FACE_CALLS = {"fused_advect_limit": 9, "remap_q_ppm_t": 1, "dss_face": 12,
               "minmax_prep": 1, "neighbor_minmax": 6}
 
 
-def state_storages(nbytes, exact=False):
+def state_storages(nbytes, exact=False, skip=frozenset()):
     """The distinct storages of at least nbytes (exactly nbytes) that live
-    tensors hold."""
+    tensors hold, but for those at the addresses in skip."""
     return {o.untyped_storage().data_ptr() for o in gc.get_objects()
             if issubclass(type(o), torch.Tensor)
+            and o.untyped_storage().data_ptr() not in skip
             and (o.untyped_storage().nbytes() == nbytes if exact
                  else o.untyped_storage().nbytes() >= nbytes)}
 
@@ -78,11 +79,15 @@ def test_face_subcycle_holds_at_most_four_states(dtype, monkeypatch):
     nbytes = state_bytes(m)
     box = [bench.initial_state(m)]
     seen, bounds = [], []
+    # the storages held before the subcycle but for its state (the model,
+    # and what other tests of the process keep, such as a cached int64
+    # table of a state's bytes) are not the subcycle's
+    skip = state_storages(1) - {box[0].untyped_storage().data_ptr()}
 
     def count(name, when):
-        seen.append((name, when, len(state_storages(nbytes))))
-        bounds.append((name, when,
-                       len(state_storages(nbytes // 16, exact=True))))
+        seen.append((name, when, len(state_storages(nbytes, skip=skip))))
+        bounds.append((name, when, len(state_storages(
+            nbytes // 16, exact=True, skip=skip))))
 
     for mod, name in WRAPPERS:
         def counted(*a, _fn=getattr(mod, name), _name=name, **kw):
@@ -172,3 +177,95 @@ def test_initial_qdp_t_matches_the_two_step_build(test_case, qsize):
     E, qk = m.lon.shape[0], qsize * cfg.nlev
     assert torch.equal(core.initial_qdp_t(m),
                        core._tp(core.initial_qdp(m), E, qk))
+
+
+# the group plan at ne = 2 with 7 tracers in groups of 3 and 4: a group's
+# buffers hold 3 or 4 level fields' bytes, its bounds [E, g*k] a sixteenth
+# of that, and neither size is a level field's [E, 16, k]
+GROUP_CFG = dataclasses.replace(CFG, qsize=7)
+GROUPS = [3, 4]
+
+
+def level_bytes(m):
+    return m.lon.shape[0] * 16 * m.cfg.nlev * m.lon.element_size()
+
+
+def storage_sizes():
+    """{storage pointer: bytes} of the storages live tensors hold."""
+    return {o.untyped_storage().data_ptr(): o.untyped_storage().nbytes()
+            for o in gc.get_objects() if issubclass(type(o), torch.Tensor)}
+
+
+def count_at_calls(step, box, monkeypatch):
+    """Run step(box, 0), taking storage_sizes() at every kernel call (on
+    entry and on return) -> the list of those, and the sizes held before
+    the subcycle."""
+    from transport_se_tpu_torch.ops import lanes
+    seen = []
+    wrappers = WRAPPERS + ((core, "lane_gather"), (core, "lane_scatter"))
+    for mod, name in wrappers:
+        def counted(*a, _fn=getattr(mod, name), **kw):
+            seen.append(storage_sizes())
+            out = _fn(*a, **kw)
+            seen.append(storage_sizes())
+            return out
+        monkeypatch.setattr(mod, name, counted)
+    assert lanes is not None
+    before = storage_sizes()
+    out = step(box, 0)
+    assert float(out[3]) > 0
+    return seen, before
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_group_plan_holds_one_state_and_four_group_buffers(dtype,
+                                                           monkeypatch):
+    """With groups, every kernel call of a face T subcycle holds the one
+    handed-over state, at most STATES group-sized buffers, at most BOUNDS
+    group bound arrays and at most LEVEL_FIELDS["groups"] level fields;
+    the bytes they hold stay under the planner's model (subcycle_bytes)."""
+    m = core.build_model(dataclasses.replace(GROUP_CFG, dtype=dtype), "cpu")
+    step = core.make_subcycle_fn(m, io_layout="t", groups=GROUPS)
+    lev = level_bytes(m)
+    full = state_bytes(m)
+    box = [bench.initial_state(m)]
+    seen, before = count_at_calls(step, box, monkeypatch)
+    assert box == [None] and seen
+    state_ptr = next(p for p, n in before.items() if n == full)
+    groups = {g * lev for g in GROUPS}
+    bounds = {g * lev // 16 for g in GROUPS}
+    for sizes in seen:
+        new = {p: n for p, n in sizes.items() if p not in before}
+        # the state is written in place: no second full state
+        assert state_ptr in sizes
+        assert sum(n == full for n in new.values()) == 0
+        assert sum(n in groups for n in new.values()) <= core.STATES
+        assert sum(n in bounds for n in new.values()) <= core.BOUNDS
+        assert sum(n == lev for n in new.values()) \
+            <= core.LEVEL_FIELDS["groups"]
+        assert full + sum(new.values()) <= core.subcycle_bytes(
+            m.lon.shape[0], 7, m.cfg.nlev, m.lon.element_size(), GROUPS)
+    # the plan is tight: four group buffers at some launch
+    assert max(sum(n in groups for p, n in s.items() if p not in before)
+               for s in seen) == core.STATES
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_one_group_stays_inside_the_planner_model(dtype, monkeypatch):
+    """The ungrouped subcycle's level fields and bytes at every kernel
+    call, against LEVEL_FIELDS["one"] and subcycle_bytes."""
+    m = core.build_model(dataclasses.replace(GROUP_CFG, dtype=dtype), "cpu")
+    step = core.make_subcycle_fn(m, io_layout="t")
+    lev = level_bytes(m)
+    box = [bench.initial_state(m)]
+    state_ptr = box[0].untyped_storage().data_ptr()
+    seen, before = count_at_calls(step, box, monkeypatch)
+    for sizes in seen:
+        # the handed-over state counts while it lives, as a new storage
+        # at its address would
+        new = {p: n for p, n in sizes.items()
+               if p not in before or p == state_ptr}
+        assert sum(n == lev for n in new.values()) \
+            <= core.LEVEL_FIELDS["one"]
+        assert sum(new.values()) <= core.subcycle_bytes(
+            m.lon.shape[0], 7, m.cfg.nlev, m.lon.element_size(), [7])

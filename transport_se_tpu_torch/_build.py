@@ -26,7 +26,7 @@ PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("euler.cu", "ppm.cu", "dss.cu", "limiter.cu", "band.cu",
-           "wind.cu")
+           "wind.cu", "lanes.cu")
 # included by the sources; part of the library's hash
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -87,6 +87,10 @@ ENTRIES = {
     # T K | out[4]: the wind kernel's values a thread, threads, shared bytes
     # per block, blocks/SM
     "tse_wind_config": [I, I, P],
+    # full group | rows L lo W | stream (lanes in values)
+    "tse_lane_gather": [P, P, LL, LL, LL, LL, P],
+    # group full | rows L lo W | stream
+    "tse_lane_scatter": [P, P, LL, LL, LL, LL, P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,9 @@
 """Run configuration.
 
 The port's own copy of `transport_se_tpu/config.py` (numpy only), kept
-bit-identical to it (tests/test_torch_host.py).
+bit-identical to it (tests/test_torch_host.py), except that it takes
+limiter_iter_cap = 15 (LIMITER_PASSES, the reference's own count) in f64
+as the same as 0, where the JAX package refuses it.
 
 Single dataclass replacing the reference's two-tier compile-time/namelist
 system (reference: control_mod.F90 globals, namelist_mod.F90:143 `readnl`,
@@ -19,6 +21,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+# the reference's limiter passes, np*np-1 (prim_advection_mod.F90:1009): a
+# limiter_iter_cap of 0 or of this count is its full iteration, in any dtype
+LIMITER_PASSES = 15
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +88,9 @@ class Config:
                                   # scripts/audit_limcap.py.  f32 Pallas
                                   # path only; the f64 verification
                                   # limiter always iterates to
-                                  # convergence.
+                                  # convergence (in f64 the port also
+                                  # takes 15, the reference's count
+                                  # written out, as 0).
     dss_mode: str = "gather"      # gather (BFB partner order) | segsum
                                   # (scatter-add, roundoff reassociation) |
                                   # face (shifted-slice assembly, fastest;
@@ -112,10 +120,11 @@ class Config:
         if self.dss_mode == "face" and self.elem_order != "raster":
             raise ValueError("dss_mode='face' requires elem_order='raster'")
         if self.limiter_iter_cap < 0 or (
-                self.limiter_iter_cap and self.dtype != "f32"):
+                self.limiter_iter_cap not in (0, LIMITER_PASSES)
+                and self.dtype != "f32"):
             raise ValueError(
-                "limiter_iter_cap is an f32 perf knob (>= 1, or 0 for "
-                "the reference's full iteration)")
+                "limiter_iter_cap is an f32 perf knob (>= 1, or 0 or "
+                f"{LIMITER_PASSES} for the reference's full iteration)")
         if self.ppm_search not in ("fast", "general"):
             raise ValueError("ppm_search must be 'fast' or 'general'")
         if self.vert_remap_q_alg not in (0, 1, 2):

@@ -57,6 +57,7 @@ from ..ops.dss import DssTables, dss_scale
 from ..ops.euler import (MAX_ITER, fused_advect_limit,
                          fused_advect_limit_plain, laplace_wk_t,
                          laplace_wk_t_plain)
+from ..ops.lanes import lane_gather, lane_scatter
 from ..ops.limiter import limiter_optim_stage
 from ..ops.ppm import ppm_fast_margin, remap_q_ppm, remap_q_ppm_general
 from ..ops.remap import remap_q_ppm_t, remap_q_ppm_t_plain
@@ -322,7 +323,8 @@ def vertical_remap(m: Model, Qdp, divdp_proj, dt_remap):
 
 def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
                  rhs_multiplier: int, pre_minmax=None, next_dp=None,
-                 next_lap=False, pre_lap=None, avg_t=None, plain=False):
+                 next_lap=False, pre_lap=None, avg_t=None, plain=False,
+                 dp_t=None):
     """One stage: Qt' = DSS[limited(Qt - dt*div(Vstar Qt) + hypervis)].
 
     Qt [E,16,L]; divdp/uv [E,16,k]; qmin/qmax [E,L].  pre_minmax: this
@@ -332,6 +334,9 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
     output/next_dp (face mode only; the gather mode gives None).  pre_lap:
     that Laplacian, for stage 2.  avg_t: fuse qdp_time_avg into the
     output.  plain: run the kernels' plain PyTorch versions (test-only).
+    dp_t [E,16,k]: the stage's thickness dp0 - rhs_multiplier*dt*divdp_proj,
+    if the caller made it (the group plan makes it once a subcycle); else
+    the stage makes it from divdp_proj_t.
     Qt, qmin, qmax, pre_minmax and pre_lap may each be handed over as a
     one-element list (_take): the stage then drops its bounds and bound
     prep once its own bounds are made, the first Laplacian once the
@@ -356,8 +361,9 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
         rsp16 = m.rspheremp.reshape(E, 16)
 
         with span("stage.bounds"):
-            dp_t = (m.dp0col[None, None, :]
-                    - rhs_multiplier * dt * divdp_proj_t)
+            if dp_t is None:
+                dp_t = (m.dp0col[None, None, :]
+                        - rhs_multiplier * dt * divdp_proj_t)
             if pre_minmax is None:
                 qmin_l, qmax_l = tb.minmax_prep(Qt, dp_t, nq, plain=plain)
             else:
@@ -454,7 +460,8 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
 
 
 def advect_rk2_t_parts(m: Model, Qt, uv_t, divdp_t, divdp_proj_t, dt_q,
-                       pre_minmax0=None, next_step_dp=None, plain=False):
+                       pre_minmax0=None, next_step_dp=None, plain=False,
+                       dps=None):
     """T-layout RK2 advection (one tracer step) from precomputed wind parts
     (uv_t = the mean-flux (u*dp, v*dp) pair, each [E,16,k]).
 
@@ -463,32 +470,47 @@ def advect_rk2_t_parts(m: Model, Qt, uv_t, divdp_t, divdp_proj_t, dt_q,
     qdp_time_avg and, given next_step_dp, the next tracer step's stage-0
     prep.  Qt and pre_minmax0 may be handed over as one-element lists
     (_take); the stages hand their outputs and bounds on the same way, so
-    each is freed at its last use.  Returns (Qt', divdp_proj_t,
-    next_minmax-or-None)."""
+    each is freed at its last use.  dps: the three stages' thicknesses
+    (dp0, dp1, dp2) [E,16,k] as stage_dps makes them, if the caller made
+    them (the group plan); else they are made here from divdp_proj_t.
+    Returns (Qt', divdp_proj_t, next_minmax-or-None)."""
     Qt = _take(Qt)           # the input, kept for the time average
     E = Qt.shape[0]
     dt2 = dt_q / 2.0
-    dp0_t = m.dp0col[None, None, :].expand(E, 16, m.cfg.nlev)
-    dp1_t = dp0_t - 1.0 * dt2 * divdp_proj_t
-    dp2_t = dp0_t - 2.0 * dt2 * divdp_proj_t
+    if dps is None:
+        dp0_t, dp1_t, dp2_t = stage_dps(m, E, divdp_proj_t, dt_q)
+        sdp = (None, None, None)
+    else:
+        dp0_t, dp1_t, dp2_t = sdp = dps
     # each stage's output, bounds and bound prep, handed to the next stage
     box, mn, mx, pre = [None], [None], [None], [None]
     mn[0] = mx[0] = Qt.new_zeros((E, Qt.shape[2]))
     box[0], mn[0], mx[0], nb = euler_step_t(
         m, Qt, mn, mx, divdp_t, divdp_proj_t, uv_t, dt2, 0,
-        pre_minmax=pre_minmax0, next_dp=dp1_t, plain=plain)
+        pre_minmax=pre_minmax0, next_dp=dp1_t, plain=plain, dp_t=sdp[0])
     pre[0], nb = nb and nb[0], None
     box[0], mn[0], mx[0], nb = euler_step_t(
         m, box, mn, mx, divdp_t, divdp_proj_t, uv_t, dt2, 1,
         pre_minmax=pre, next_dp=dp2_t, next_lap=m.cfg.nu_q > 0,
-        plain=plain)
+        plain=plain, dp_t=sdp[1])
     pre[0], lap = (None, [None]) if nb is None else (nb[0], [nb[1]])
     nb = None
     Qt3, _, _, nb = euler_step_t(
         m, box, mn, mx, divdp_t, divdp_proj_t, uv_t, dt2, 2,
         pre_minmax=pre, pre_lap=lap, avg_t=Qt, next_dp=next_step_dp,
-        plain=plain)
+        plain=plain, dp_t=sdp[2])
     return Qt3, divdp_proj_t, None if nb is None else nb[0]
+
+
+def stage_dps(m: Model, E, divdp_proj_t, dt_q):
+    """The three stages' thicknesses of a tracer step, dp0 + the stage's
+    offset: (dp0 [E,16,k] as an expanded view, dp1, dp2).  Each equals the
+    thickness euler_step_t makes for its stage bit for bit (the same
+    products and difference)."""
+    dt2 = dt_q / 2.0
+    dp0_t = m.dp0col[None, None, :].expand(E, 16, m.cfg.nlev)
+    return (dp0_t, dp0_t - 1.0 * dt2 * divdp_proj_t,
+            dp0_t - 2.0 * dt2 * divdp_proj_t)
 
 
 def vertical_remap_t(m: Model, Qt, divdp_proj_t, dt_remap, plain=False):
@@ -500,40 +522,55 @@ def vertical_remap_t(m: Model, Qt, divdp_proj_t, dt_remap, plain=False):
     displacement outside the remap's -2..+2 cell window
     (ppm_fast_margin)."""
     with span("remap"):
-        cfg = m.cfg
-        E = Qt.shape[0]
-        with span("remap.levels"):
-            dp_star = m.dp0col[None, None, :] - dt_remap * divdp_proj_t
-            ps_v = m.hyai[0] * P0 + dp_star.sum(dim=2)
-            dp_ref = ((m.hyai[1:] - m.hyai[:-1])[None, None, :] * P0
-                      + (m.hybi[1:] - m.hybi[:-1])[None, None, :]
-                      * ps_v[..., None])
-        if cfg.ppm_search == "general":
-            # the unbounded search (plain PyTorch, as the JAX package's XLA
-            # path); the window guard is advisory, only the thickness
-            # counts
-            with span("remap.health"):
-                min_dp = m.tables.global_min(dp_star.min())
-            with span("remap.ppm"):
-                nq, nk = cfg.qsize, cfg.nlev
-                Qcol = Qt.reshape(E, 16, nq, nk)
-                # element chunks bound the search's [.., k, k+2] working set
-                nc = next((c for c in (8, 4, 2) if E % c == 0), 1)
-                ec = E // nc
-                Qnew = torch.cat([
-                    remap_q_ppm_general(Qcol[i:i + ec], dp_star[i:i + ec],
-                                        dp_ref[i:i + ec],
-                                        alg=cfg.vert_remap_q_alg)
-                    for i in range(0, E, ec)]).reshape(Qt.shape)
-            return Qnew, ps_v.reshape(E, 4, 4), min_dp
-        with span("remap.health"):
+        dp_star, dp_ref, ps_v, min_dp = remap_levels_t(m, divdp_proj_t,
+                                                       dt_remap)
+        return remap_lanes_t(m, Qt, dp_star, dp_ref, plain=plain), ps_v, \
+            min_dp
+
+
+def remap_levels_t(m: Model, divdp_proj_t, dt_remap):
+    """The remap's tracer-independent part: (dp_star, dp_ref [E,16,k],
+    ps_v [E,4,4], min_dp), the Lagrangian and the reference widths, the
+    surface pressure and the health check (see vertical_remap_t)."""
+    E = divdp_proj_t.shape[0]
+    with span("remap.levels"):
+        dp_star = m.dp0col[None, None, :] - dt_remap * divdp_proj_t
+        ps_v = m.hyai[0] * P0 + dp_star.sum(dim=2)
+        dp_ref = ((m.hyai[1:] - m.hyai[:-1])[None, None, :] * P0
+                  + (m.hybi[1:] - m.hybi[:-1])[None, None, :]
+                  * ps_v[..., None])
+    with span("remap.health"):
+        if m.cfg.ppm_search == "general":
+            # the unbounded search: the window guard is advisory, only the
+            # thickness counts
+            min_dp = m.tables.global_min(dp_star.min())
+        else:
             health = torch.minimum(dp_star.min(),
                                    ppm_fast_margin(dp_star, dp_ref))
             min_dp = m.tables.global_min(health)
-        with span("remap.ppm"):
-            remap = _kernels(plain)[2]
-            Qnew = remap(Qt, dp_star, dp_ref, alg=cfg.vert_remap_q_alg)
-        return Qnew, ps_v.reshape(E, 4, 4), min_dp
+    return dp_star, dp_ref, ps_v.reshape(E, 4, 4), min_dp
+
+
+def remap_lanes_t(m: Model, Qt, dp_star, dp_ref, plain=False):
+    """The remap of the lanes of Qt [E,16,q*k] (q = m.cfg.qsize) from
+    dp_star to dp_ref (remap_levels_t) -> Qt'."""
+    cfg = m.cfg
+    with span("remap.ppm"):
+        if cfg.ppm_search == "general":
+            # the unbounded search (plain PyTorch, as the JAX package's XLA
+            # path)
+            E = Qt.shape[0]
+            Qcol = Qt.reshape(E, 16, cfg.qsize, cfg.nlev)
+            # element chunks bound the search's [.., k, k+2] working set
+            nc = next((c for c in (8, 4, 2) if E % c == 0), 1)
+            ec = E // nc
+            return torch.cat([
+                remap_q_ppm_general(Qcol[i:i + ec], dp_star[i:i + ec],
+                                    dp_ref[i:i + ec],
+                                    alg=cfg.vert_remap_q_alg)
+                for i in range(0, E, ec)]).reshape(Qt.shape)
+        remap = _kernels(plain)[2]
+        return remap(Qt, dp_star, dp_ref, alg=cfg.vert_remap_q_alg)
 
 
 # ---------------------------------------------------------------------------
@@ -576,13 +613,87 @@ def uses_t_layout(cfg: Config, diagnostics: bool = False) -> bool:
     return cfg.use_pallas and cfg.limiter_option == 8 and not diagnostics
 
 
+# The T subcycle's memory plans.  One group: the state handed over, a
+# subcycle holds at most STATES state-sized buffers and BOUNDS [E, q*k]
+# limiter-bound arrays at any kernel launch (tests/test_torch_memory.py).
+# Groups of tracers (where that does not fit the device): the state, and
+# for the group in flight STATES group-sized buffers and BOUNDS group-sized
+# bound arrays.  Beside them a plan holds level-width fields [E, 16, k]
+# (winds, thicknesses, the remap's widths): at most LEVEL_FIELDS of them
+# at a launch, as counted in tests/test_torch_memory.py, with a margin.
+STATES = 4
+BOUNDS = 4
+LEVEL_FIELDS = {"one": 10, "groups": 22}
+# the share of the device's total memory a subcycle's modelled peak may take
+MEMORY_SHARE = 0.9
+
+
+def subcycle_bytes(E, qsize, nlev, itemsize, widths, held=0):
+    """The modelled peak bytes of a T subcycle of qsize tracers on E
+    elements run in groups of `widths` tracers ([qsize]: one group), the
+    state handed over; held: the bytes the model and the wind basis hold
+    (held_bytes)."""
+    tracer = E * 16 * nlev * itemsize      # one tracer's lanes, = one level
+    bound = E * nlev * itemsize            # field; one tracer's bound array
+    g = max(widths)
+    if len(widths) == 1:
+        return held + (STATES * tracer + BOUNDS * bound) * qsize \
+            + LEVEL_FIELDS["one"] * tracer
+    return held + tracer * qsize + (STATES * tracer + BOUNDS * bound) * g \
+        + LEVEL_FIELDS["groups"] * tracer
+
+
+def plan_groups(E, qsize, nlev, itemsize, total, held=0):
+    """The group widths of a T subcycle on a device of `total` bytes: one
+    group where its modelled peak (subcycle_bytes) fits MEMORY_SHARE of
+    the total, else the fewest groups that fit, as even as they split."""
+    budget = MEMORY_SHARE * total
+    for n in range(1, qsize + 1):
+        widths = [qsize // n + (i < qsize % n) for i in range(n)]
+        if subcycle_bytes(E, qsize, nlev, itemsize, widths, held) <= budget:
+            return widths
+    raise ValueError(
+        f"no group plan of {qsize} tracers on {E} elements x {nlev} levels "
+        f"fits {budget / 2**30:.2f} GiB")
+
+
+def held_bytes(*objs) -> int:
+    """The bytes of the distinct tensor storages that objs hold in their
+    fields, three levels down (a Model, its DSS tables and their face
+    tables; a wind basis)."""
+    seen = {}
+
+    def walk(o, depth):
+        if isinstance(o, torch.Tensor):
+            st = o.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+        elif depth and hasattr(o, "__dict__"):
+            for v in vars(o).values():
+                walk(v, depth - 1)
+    for o in objs:
+        walk(o, 3)
+    return sum(seen.values())
+
+
 def make_subcycle_fn(m: Model, diagnostics: bool = False,
-                     io_layout: str = "std", plain: bool = False):
+                     io_layout: str = "std", plain: bool = False,
+                     groups=None):
     """Returns fn(Qdp, nstep) -> (Qdp', ps_v, nstep', min_dp).  Qdp may be
     handed over as a one-element list, which fn empties (_take): its
     stages then free every state-sized buffer at its last use, so that a
     face T subcycle holds at most four of them at any kernel launch
     (tests/test_torch_memory.py); a tensor stays alive in its caller.
+
+    On the T-layout pipeline the subcycle advances its tracers in groups
+    where four states do not fit the device: plan_groups chooses the
+    widths once, here, from the device's total memory (one group on the
+    CPU).  groups: widths that sum to qsize, to force a group plan (any
+    device; tests).  A group plan gathers each group's lanes into a group
+    buffer (`ops/lanes.py`), runs the tracer steps and the remap on it and
+    scatters the result back: into the handed-over state, in place, or
+    into a new state where the caller keeps its tensor.  The winds, the
+    stages' thicknesses and the remap's widths and health check are made
+    once a subcycle, before the groups.
 
     One call advances cfg.rsplit tracer steps and performs one vertical
     remap (prim_driver_mod.F90:788-796); nstep counts tracer steps.  The
@@ -655,6 +766,78 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
 
     from .wind_basis import build_wind_basis
     wb = build_wind_basis(m, plain=plain)
+    E = m.lon.shape[0]
+    if groups is None and m.device.type == "cuda":
+        total = torch.cuda.get_device_properties(m.device).total_memory
+        groups = plan_groups(E, cfg.qsize, cfg.nlev, m.lon.element_size(),
+                             total, held=held_bytes(m, wb))
+        if len(groups) == 1:
+            groups = None
+    if groups is not None:
+        groups = [int(g) for g in groups]
+        if sum(groups) != cfg.qsize or min(groups) < 1:
+            raise ValueError(f"groups {groups} do not split the "
+                             f"{cfg.qsize} tracers")
+        # each width's model: the stages read the tracer count from cfg
+        models = {g: dataclasses.replace(
+            m, cfg=dataclasses.replace(cfg, qsize=g)) for g in set(groups)}
+
+    def winds_of(nstep):
+        """A tracer step's winds (un0, vn0, divdp, divdp_proj) [E,16,k]."""
+        with span("wind"):
+            un0_t, vn0_t, divdp_t, divdp_proj_t = wb.eval(t_wind_of(nstep))
+            if cfg.qsplit != 1:
+                w = ur_w[nstep % cfg.qsplit]
+                un0_t, vn0_t = un0_t * w, vn0_t * w
+                divdp_t = divdp_t * w
+                divdp_proj_t = divdp_proj_t * w
+            return un0_t, vn0_t, divdp_t, divdp_proj_t
+
+    def subcycle_groups(Qt, nstep: int):
+        # a one-element list hands the state over: each group's result is
+        # written back into it; a tensor stays the caller's, unchanged, and
+        # the result is a new state
+        handed = isinstance(Qt, list)
+        X = _take(Qt)
+        del Qt
+        with span("subcycle"):
+            out = X if handed else torch.empty_like(X)
+            # the tracer-independent work, once: each step's winds and
+            # stage thicknesses, the remap's widths and health check
+            dp0_t = m.dp0col[None, None, :].expand(E, 16,
+                                                   cfg.nlev).contiguous()
+            steps = []
+            for i in range(cfg.rsplit):
+                un0_t, vn0_t, divdp_t, divdp_proj_t = winds_of(nstep + i)
+                _, dp1_t, dp2_t = stage_dps(m, E, divdp_proj_t, dt_q)
+                steps.append(((un0_t, vn0_t), divdp_t, (dp0_t, dp1_t, dp2_t)))
+                del un0_t, vn0_t, divdp_t, dp1_t, dp2_t
+            with span("remap"):
+                dp_star, dp_ref, ps_v, min_dp = remap_levels_t(
+                    m, divdp_proj_t, dt_remap)
+            del divdp_proj_t
+            lo = 0
+            for g in groups:
+                mg = models[g]
+                with span("lanes.group"):
+                    with span("lanes.gather"):
+                        box = [lane_gather(X, lo * cfg.nlev, g * cfg.nlev)]
+                    mm0 = [None]
+                    for i, (uv_t, divdp_t, dps) in enumerate(steps):
+                        with span("tracer_step"):
+                            nd = dp0_t if i < cfg.rsplit - 1 else None
+                            box[0], _, mm0[0] = advect_rk2_t_parts(
+                                mg, box, uv_t, divdp_t, None, dt_q,
+                                pre_minmax0=mm0, next_step_dp=nd,
+                                plain=plain, dps=dps)
+                    with span("remap"):
+                        Qg = remap_lanes_t(mg, _take(box), dp_star, dp_ref,
+                                           plain=plain)
+                    with span("lanes.scatter"):
+                        lane_scatter(Qg, out, lo * cfg.nlev)
+                    del Qg
+                lo += g
+            return out, ps_v, nstep + cfg.rsplit, min_dp
 
     def subcycle_t(Qt, nstep: int):
         # a tensor stays the caller's; a one-element list hands it over
@@ -670,14 +853,7 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
             mm0 = [None]  # a step's stage-0 bound prep, from the step before
             for i in range(cfg.rsplit):
                 with span("tracer_step"):
-                    with span("wind"):
-                        un0_t, vn0_t, divdp_t, divdp_proj_t = wb.eval(
-                            t_wind_of(nstep))
-                        if cfg.qsplit != 1:
-                            w = ur_w[nstep % cfg.qsplit]
-                            un0_t, vn0_t = un0_t * w, vn0_t * w
-                            divdp_t = divdp_t * w
-                            divdp_proj_t = divdp_proj_t * w
+                    un0_t, vn0_t, divdp_t, divdp_proj_t = winds_of(nstep)
                     # step i's stage-3 output bounds over dp0 are step
                     # i+1's stage-0 prep (stage-0 dp is the static dp0)
                     nd = dp0_t if i < cfg.rsplit - 1 else None
@@ -689,15 +865,19 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
                                                 dt_remap, plain=plain)
             return Qt, ps_v, nstep, min_dp
 
+    run_t = subcycle_t if groups is None else subcycle_groups
+    # the plan's group widths, for its callers to report
+    run_t.groups = groups or [cfg.qsize]
     if io_layout == "t":
-        return subcycle_t
+        return run_t
 
     def step_t(Qdp, nstep: int):
         Qdp = _take(Qdp)
         shape = Qdp.shape
         box = [_tp(Qdp, shape[0], cfg.qsize * cfg.nlev)]
         del Qdp
-        Qt, ps_v, nstep, min_dp = subcycle_t(box, nstep)
+        Qt, ps_v, nstep, min_dp = run_t(box, nstep)
         return _tp_back(Qt, shape), ps_v, nstep, min_dp
 
+    step_t.groups = run_t.groups
     return step_t
