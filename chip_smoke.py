@@ -16,7 +16,10 @@ the result lines):
      12 launches of a face subcycle;
      the wind kernel bitwise, with its registers and launch shape, timed
      at the NE30 and NE120 shapes beside its bound, its plain chain and
-     one torch.einsum per field;
+     one torch.einsum per field; the remap's health kernel bitwise on
+     K3's widths, timed at the NE30 and NE120 shapes beside its bound, its
+     plain version and the chain it replaced, with its registers and
+     launch shape;
      K1 bitwise at each stage kind, and its times at limiter iteration
      caps 1, 2, 4 and 15; K3 bitwise at alg 0 and 2, with its registers,
      shared memory and resident blocks per SM; K5 bitwise on the sphere
@@ -169,11 +172,14 @@ KERNELS = {
     "wind_eval_t": ("transport_se_tpu_torch/csrc/wind.cu",
                     "none (transport_se_tpu/model/wind_basis.py "
                     "WindBasis.eval's einsum, left to XLA)"),
+    "remap_health_t": ("transport_se_tpu_torch/csrc/health.cu",
+                       "none (transport_se_tpu/ops/ppm.py ppm_fast_margin "
+                       "beside dp_star.min(), left to XLA)"),
 }
 KEY = {"fused_advect_limit": "K1", "laplace_wk_t": "K2",
        "remap_q_ppm_t": "K3", "dss_face": "K4", "minmax_prep": "K5",
        "neighbor_minmax": "K6", "limiter_optim": "K10",
-       "dss_band": "K7", "wind_eval_t": "wind"}
+       "dss_band": "K7", "wind_eval_t": "wind", "remap_health_t": "health"}
 # the single-device T path's kernels (phase 3); K10 has phase 8, K7 13
 T_KERNELS = tuple(k for k in KERNELS if k not in ("limiter_optim",
                                                    "dss_band"))
@@ -183,16 +189,16 @@ T_KERNELS = tuple(k for k in KERNELS if k not in ("limiter_optim",
 # time average) plus one per DCMIP 1-1 wind term (6) when the subcycle
 # function builds its wind basis; one bound prep per subcycle; neighbor
 # min/max on stages 0 and 2; no weak-Laplacian launch.
-# The T path runs no K10 (K1 limits inside the fused stage), and the wind
-# kernel once a step.
+# The T path runs no K10 (K1 limits inside the fused stage), the wind
+# kernel once a step and the remap's health kernel once a subcycle.
 FACE_COUNTS = {"fused_advect_limit": 18, "laplace_wk_t": 0,
                "remap_q_ppm_t": 2, "dss_face": 4 * 6 + 6, "minmax_prep": 2,
                "neighbor_minmax": 12, "limiter_optim": 0, "dss_band": 0,
-               "wind_eval_t": 6}
+               "wind_eval_t": 6, "remap_health_t": 2}
 GATHER_COUNTS = {"fused_advect_limit": 18, "laplace_wk_t": 6,
                  "remap_q_ppm_t": 2, "dss_face": 0, "minmax_prep": 0,
                  "neighbor_minmax": 0, "limiter_optim": 0, "dss_band": 0,
-                 "wind_eval_t": 6}
+                 "wind_eval_t": 6, "remap_health_t": 2}
 # The sharded face path, per shard and subcycle (rsplit = 3 steps): K7
 # four times a step and six times when the subcycle function builds its
 # wind basis (the DCMIP 1-1 terms); K1 once a stage, twice with the
@@ -211,11 +217,12 @@ K4_SUBCYCLE = {"scale": 3, "minmax": 3, "minmax+lap": 3, "avg+minmax": 2,
                "avg": 1}
 # one face subcycle (phase 17): the 4 face DSS a step and the 6 of the wind
 # basis built with the subcycle function, K1 a stage, K5 once, K6 on
-# stages 0 and 2, K3 once, the wind kernel a step
+# stages 0 and 2, K3 and the health kernel once, the wind kernel a step
 FACE_SUBCYCLE_COUNTS = {"fused_advect_limit": 9, "laplace_wk_t": 0,
                         "remap_q_ppm_t": 1, "dss_face": 4 * 3 + 6,
                         "minmax_prep": 1, "neighbor_minmax": 6,
-                        "limiter_optim": 0, "dss_band": 0, "wind_eval_t": 3}
+                        "limiter_optim": 0, "dss_band": 0, "wind_eval_t": 3,
+                        "remap_health_t": 1}
 PROXY_NE = 42
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ne42_proxy_value",
               "ne42_proxy_vs_baseline"}
@@ -245,12 +252,13 @@ NE120_SLACK = 10 * 2**30
 def gather_shard_counts(S, nsub, overlap):
     """The sharded gather T path, per shard and subcycle: K1 once a stage,
     twice with the boundary-first split; K2 for stage 2's first Laplacian
-    of each step; K3 once; the wind kernel a step; the DSS, bound prep
-    and neighbour bounds are plain gathers."""
+    of each step; K3 and the health kernel once; the wind kernel a step;
+    the DSS, bound prep and neighbour bounds are plain gathers."""
     return {"fused_advect_limit": S * 9 * nsub * (2 if overlap else 1),
             "laplace_wk_t": S * 3 * nsub, "remap_q_ppm_t": S * nsub,
             "dss_face": 0, "minmax_prep": 0, "neighbor_minmax": 0,
-            "limiter_optim": 0, "dss_band": 0, "wind_eval_t": S * 3 * nsub}
+            "limiter_optim": 0, "dss_band": 0, "wind_eval_t": S * 3 * nsub,
+            "remap_health_t": S * nsub}
 
 
 def sharded_counts(S, nsub, overlap):
@@ -258,7 +266,8 @@ def sharded_counts(S, nsub, overlap):
             "fused_advect_limit": S * 9 * nsub * (2 if overlap else 1),
             "minmax_prep": S * 3 * nsub, "remap_q_ppm_t": S * nsub,
             "dss_face": 0, "neighbor_minmax": 0, "laplace_wk_t": 0,
-            "limiter_optim": 0, "wind_eval_t": S * 3 * nsub}
+            "limiter_optim": 0, "wind_eval_t": S * 3 * nsub,
+            "remap_health_t": S * nsub}
 # The std-layout step launches K10 once per stage: 3 per tracer step.
 K10_PER_STEP = 3
 
@@ -293,7 +302,8 @@ CLI_RUNS = (
 # 1e-2 catches a fault of the path, not its f32 roundoff
 VERIFY_TOL = 1e-2
 VERIFY_KERNELS = ("fused_advect_limit", "remap_q_ppm_t", "dss_face",
-                  "minmax_prep", "neighbor_minmax", "wind_eval_t")
+                  "minmax_prep", "neighbor_minmax", "wind_eval_t",
+                  "remap_health_t")
 # the relative tracer-mass drift of a run (the printstate masses); the
 # JAX package's CPU runs show 2e-12 (NE8 1-2) and 5e-13 (NE30 1-2)
 DRIFT_TOL = 1e-11
@@ -378,10 +388,13 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
 # floating-point operations, counted from the plain versions: per point of
 # an (element, lane) column for the stage parts and the DSS epilogues, per
-# (point, tracer, level) cell for the PPM remap, and one limiter pass per
-# column or row (each makes at least one; how many more is the data's)
+# (point, tracer, level) cell for the PPM remap and per (point, level)
+# width for the remap's health check (two sums, two differences, three
+# minima), and one limiter pass per column or row (each makes at least
+# one; how many more is the data's)
 OPS = {"advect": 16 * 30, "limiter_iter": 16 * 8, "lap": 16 * 50,
-       "ppm": 100, "dss_add": 3, "scale": 1, "avg": 3, "minmax": 2}
+       "ppm": 100, "dss_add": 3, "scale": 1, "avg": 3, "minmax": 2,
+       "health": 7}
 
 
 def bound(nbytes, nops, dtype):
@@ -512,7 +525,7 @@ def port_modules():
     from transport_se_tpu_torch.model import core, driver, wind_basis
     from transport_se_tpu_torch.norms import history_norms
     from transport_se_tpu_torch.ops import (band, dss_face, euler, lanes,
-                                            limiter, remap, wind)
+                                            limiter, ppm, remap, wind)
     from transport_se_tpu_torch.parallel import (comm, face_sharded, halo,
                                                  sharded)
     return dict(_build=_build, audit_drift=audit_drift, counters=counters,
@@ -522,7 +535,7 @@ def port_modules():
                 perf_config=perf_config, core=core, driver=driver,
                 wind_basis=wind_basis, history_norms=history_norms,
                 band=band, dss_face=dss_face, euler=euler, lanes=lanes,
-                limiter=limiter, remap=remap, wind=wind,
+                limiter=limiter, ppm=ppm, remap=remap, wind=wind,
                 comm=comm, face_sharded=face_sharded, halo=halo,
                 sharded=sharded)
 
@@ -809,7 +822,8 @@ def phase_ne120_f64(torch, mods, dev, t_start, ne=NE120):
     del few
     check(c["lane_gather_t"] == c["lane_scatter_t"] == len(groups)
           and c["fused_advect_limit"] == 9 * len(groups)
-          and c["remap_q_ppm_t"] == len(groups) and c["wind_eval_t"] == 3,
+          and c["remap_q_ppm_t"] == len(groups) and c["wind_eval_t"] == 3
+          and c["remap_health_t"] == 1,
           f"NE{ne} f64 groups {groups}: launches {c}")
     check(finite and float(md) > 0, f"NE{ne} f64: finite {finite}, min_dp "
           f"{float(md)}")
@@ -836,7 +850,10 @@ def phase_ne120_f64(torch, mods, dev, t_start, ne=NE120):
         box[0], _, nstep, _ = step(box, nstep)
         torch.cuda.synchronize()
     by_name, busy, span = device_ms(pr, DeviceType.CUDA, "phase 21")
-    # and one more counting K1's limiter work (counters.WORK)
+    # and one more counting K1's limiter work (counters.WORK), from an
+    # emptied cache: after the earlier phases' leftovers and two subcycles
+    # the cached blocks are too fragmented for its 6.68 GiB Laplacian
+    torch.cuda.empty_cache()
     counters.work_reset()
     with counters.counting():
         box[0] = step(box, nstep)[0]
@@ -1103,6 +1120,53 @@ def main():
                     f"field, {shape['threads']} threads, "
                     f"{shape['smem_bytes']} B shared a block, "
                     f"{shape['blocks_per_sm']} blocks/SM")
+        # the health kernel on K3's widths, bit for bit (-0 included), then
+        # at NE120's column count (the widths tiled); beside it its plain
+        # version and the chain it replaced (the least width beside
+        # ppm_fast_margin; timed, no longer on the path).  A launch at NE30
+        # is shorter than the host's call, so it is also timed over a burst
+        # of launches back to back.  Bytes: both fields read once
+        def chain(a, b):
+            return torch.minimum(a.min(), mods["ppm"].ppm_fast_margin(a, b))
+        for ne_h in (NE, NE120):
+            tile = (ne_h // NE) ** 2
+            hs, hr = dps.repeat(tile, 1, 1), dpr.repeat(tile, 1, 1)
+            got = remap.remap_health_t(hs, hr)
+            want = remap.remap_health_t_plain(hs, hr)
+            ch = chain(hs, hr)
+            check(torch.equal(bits(torch, got), bits(torch, want)),
+                  f"{dtype} health kernel at NE{ne_h} is not bitwise equal "
+                  f"to its plain version: {got.item()!r} {want.item()!r}")
+            nbytes, nops = 2 * hs.numel() * es, hs.numel() * OPS["health"]
+            kern = lambda: remap.remap_health_t(hs, hr)  # noqa: E731
+            plain = lambda: remap.remap_health_t_plain(hs, hr)  # noqa: E731
+            if ne_h == NE:
+                hold(f"health NE{NE}", kern, plain, "remap_health_t", nbytes,
+                     nops)
+                t_k, t_p = (times["remap_health_t"][0][-1],
+                            times["remap_health_t"][1][-1])
+            else:
+                t_k, t_p = timed(torch, kern), timed(torch, plain)
+            t_c, t_b = timed(torch, lambda: chain(hs, hr)), burst(kern)
+            b = bound(nbytes, nops, dtype)[0]
+            line.append(f"health NE{ne_h} ({hs.shape[0] * 16} columns) "
+                        f"bitwise, value {got.item():.9g} (chain "
+                        f"{ch.item():.9g}), {t_k:.4f} ms a launch alone, "
+                        f"{t_b:.4f} over {BURST} back to back, against its "
+                        f"bound {b:.4f} ({b / t_b:.1%}); plain {t_p:.3f} "
+                        f"ms; the chain it replaced {t_c:.3f} ms")
+            del hs, hr, got, want, ch, kern, plain
+            torch.cuda.empty_cache()
+        shape = remap.health_kernel_config(nk, Qt.dtype)
+        regs = [u for u in ptxas_usage(_build.BUILD_DIR / "build.log")
+                if u.startswith(f"remap_health_kernel<{dtype}")
+                or u.startswith(f"remap_health_reduce_kernel<{dtype}")]
+        regs = "; ".join(regs) or "ptxas report not found"
+        line.append(f"health kernel {regs}; "
+                    f"{shape['threads']} columns a block, "
+                    f"{shape['smem_bytes']} B shared a block, "
+                    f"{shape['blocks_per_sm']} blocks/SM, {shape['blocks']} "
+                    "blocks a launch")
         # K4 in its seven launch cases on a stage output, with the state as
         # the time average's input, bit for bit (-0 included); K5 and K6
         # on stage-1 bounds

@@ -20,6 +20,7 @@ from transport_se_tpu_torch.model.core import (_tp, build_model, initial_qdp,
                                                make_subcycle_fn)
 from transport_se_tpu_torch.model.wind_basis import build_wind_basis
 from transport_se_tpu_torch.ops import euler, limiter, remap, wind
+from transport_se_tpu_torch.ops.ppm import ppm_fast_margin
 
 pytestmark = pytest.mark.gpu
 
@@ -307,6 +308,97 @@ def test_k3_edge_shapes_bitwise(cuda, dtype, case):
         assert bool(same.all()), (case, alg, (got - want).abs().max().item())
 
 
+# the health kernel's cases, each (E, nlev, case): one element (16
+# columns, a partial tile of 64); 80 columns (a full tile and a partial
+# one); NE30's 86,400 columns (blocks walk many tiles); 4 and 64 levels;
+# 5 levels (rows that are no multiple of 16 bytes: single-value staging);
+# a field that is not 16-byte aligned; a negative width, a NaN width and
+# interfaces displaced out of the cell window
+HEALTH_CASES = {
+    "e1_nk72": (1, 72, None),
+    "e5_nk72": (5, 72, None),
+    "ne30_nk72": (5400, 72, "big"),
+    "nk4": (3, 4, None),
+    "nk5": (3, 5, None),
+    "nk64": (7, 64, None),
+    "unaligned_nk72": (5, 72, "unaligned"),
+    "negative_width": (5, 72, "negative"),
+    "nan_width": (5, 72, "nan"),
+    "displaced": (5, 72, "corrupt"),
+}
+
+
+@pytest.mark.parametrize("case", list(HEALTH_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_health_kernel_edge_shapes_bitwise(cuda, dtype, case):
+    """The health kernel == remap_health_t_plain bit for bit (NaN where
+    the plain version gives NaN); within roundoff of the chain it
+    replaces."""
+    E, nk, kind = HEALTH_CASES[case]
+    f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    if kind == "big":
+        g = torch.Generator().manual_seed(3)
+        dps = (torch.rand(E, 16, nk, generator=g, dtype=torch.float64)
+               * 100.0 + 50.0).to(cuda, f)
+        dpr = dps.flip(-1).contiguous()
+    else:
+        _, dps, dpr = (a.to(cuda, f) for a in _ppm_columns(
+            E, 1, nk, corrupt=kind == "corrupt"))
+    if kind == "unaligned":
+        buf = torch.empty(dps.numel() + 1, dtype=f, device=cuda)
+        dps = buf[1:].view_as(dps).copy_(dps)
+        assert dps.data_ptr() % 16
+    if kind == "negative":
+        dps[4, 9, 70] = -3.0
+    if kind == "nan":
+        dps[2, 15, 71] = float("nan")
+    counters.reset()
+    got = remap.remap_health_t(dps, dpr)
+    assert counters.snapshot()["remap_health_t"] == 1
+    want = remap.remap_health_t_plain(dps, dpr)
+    assert got.shape == () and got.dtype == f
+    if kind == "nan":
+        assert torch.isnan(got) and torch.isnan(want)
+        return
+    assert torch.equal(_bits(got), _bits(want)), (got.item(), want.item())
+    chain = torch.minimum(dps.min(), ppm_fast_margin(dps, dpr))
+    eps = torch.finfo(f).eps
+    assert abs(got.item() - chain.item()) <= \
+        4 * nk * eps * dps.sum(-1).abs().max().item()
+    if kind in ("negative", "corrupt"):
+        assert got.item() < 0
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_face_subcycle_health_as_the_chain(cuda, dtype, monkeypatch):
+    """One face subcycle with the health kernel against one with the chain
+    it replaces (the least width beside ppm_fast_margin): the state, ps_v
+    and the remap's widths bit for bit, min_dp within roundoff."""
+    m = _model(dtype, cuda, "face")
+    Qt = _tp(initial_qdp(m), m.lon.shape[0], m.cfg.qsize * m.cfg.nlev)
+    divp = build_wind_basis(m).eval(
+        torch.full((), 1200.0, dtype=m.dtype, device=cuda))[3]
+    step = make_subcycle_fn(m, io_layout="t")
+    got = step(Qt, 0)
+    lv = core.remap_levels_t(m, divp, m.cfg.dt_remap)
+
+    def chain(dps, dpr):
+        return torch.minimum(dps.min(), ppm_fast_margin(dps, dpr))
+    monkeypatch.setattr(core, "remap_health_t", chain)
+    counters.reset()
+    want = step(Qt, 0)
+    assert counters.snapshot()["remap_health_t"] == 0
+    lv_c = core.remap_levels_t(m, divp, m.cfg.dt_remap)
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(_bits(got[1]), _bits(want[1])) and got[2] == want[2]
+    for a, b in zip(lv[:3], lv_c[:3]):
+        assert torch.equal(_bits(a), _bits(b))
+    eps = torch.finfo(m.dtype).eps
+    tol = 4 * m.cfg.nlev * eps * float(m.dp0col.sum()) * 2
+    for a, b in ((got[3], want[3]), (lv[3], lv_c[3])):
+        assert 0 < a.item() and abs(a.item() - b.item()) <= tol
+
+
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_subcycle_kernels_match_plain_and_count(cuda, dtype):
     m = _model(dtype, cuda)
@@ -316,7 +408,8 @@ def test_subcycle_kernels_match_plain_and_count(cuda, dtype):
     counts = counters.snapshot()
     want = make_subcycle_fn(m, io_layout="t", plain=True)(Qt, 0)[0]
     launches = {"fused_advect_limit": 9, "laplace_wk_t": 3,
-                "remap_q_ppm_t": 1, "limiter_optim": 0, "wind_eval_t": 3}
+                "remap_q_ppm_t": 1, "limiter_optim": 0, "wind_eval_t": 3,
+                "remap_health_t": 1}
     assert _named(counts, launches) == {
         **launches, **{k + "_plain": 0 for k in launches}}
     _close(got, want)
@@ -324,10 +417,11 @@ def test_subcycle_kernels_match_plain_and_count(cuda, dtype):
 
 # DCMIP 1-1's wind basis DSSes its 6 terms once, when the subcycle function
 # is made; a face subcycle then runs 4 face DSS and the wind kernel once
-# per step
+# per step, and the remap's health kernel once
 FACE_SUBCYCLE = {"fused_advect_limit": 9, "laplace_wk_t": 0,
                  "remap_q_ppm_t": 1, "dss_face": 4 * 3 + 6,
-                 "minmax_prep": 1, "neighbor_minmax": 6, "wind_eval_t": 3}
+                 "minmax_prep": 1, "neighbor_minmax": 6, "wind_eval_t": 3,
+                 "remap_health_t": 1}
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
@@ -451,7 +545,7 @@ def test_std_subcycle_kernels_match_plain_and_count(cuda, dtype, dss_mode):
     got = make_subcycle_fn(m)(Q0, 0)[0]
     counts = counters.snapshot()
     want_k = {"limiter_optim": 9, "fused_advect_limit": 0,
-              "remap_q_ppm_t": 0}
+              "remap_q_ppm_t": 0, "remap_health_t": 0}
     if dss_mode == "face":
         want_k.update(dss_face=15, neighbor_minmax=6)
     assert _named(counts, want_k) == {

@@ -46,10 +46,11 @@ MAX_BOUNDS = 4
 # the kernel wrappers the T path calls (model/core.py, ops/dss.py), and
 # their calls in one face subcycle
 WRAPPERS = ((core, "fused_advect_limit"), (core, "laplace_wk_t"),
-            (core, "remap_q_ppm_t"), (dss_face, "dss_face"),
-            (dss_face, "minmax_prep"), (dss_face, "neighbor_minmax"))
+            (core, "remap_q_ppm_t"), (core, "remap_health_t"),
+            (dss_face, "dss_face"), (dss_face, "minmax_prep"),
+            (dss_face, "neighbor_minmax"))
 FACE_CALLS = {"fused_advect_limit": 9, "remap_q_ppm_t": 1, "dss_face": 12,
-              "minmax_prep": 1, "neighbor_minmax": 6}
+              "minmax_prep": 1, "neighbor_minmax": 6, "remap_health_t": 1}
 
 
 def state_storages(nbytes, exact=False, skip=frozenset()):

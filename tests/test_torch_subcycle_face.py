@@ -81,14 +81,15 @@ def test_face_subcycle_matches_jax(one_subcycle):
 def test_face_subcycle_goes_through_the_face_trio(one_subcycle):
     """On the CPU every wrapper runs its plain version and counts it: 4
     face DSS per step (+ the wind basis's), the winds once a step, one
-    bound prep per subcycle, neighbor min/max on stages 0 and 2, and no
-    weak-Laplacian run."""
+    bound prep per subcycle, neighbor min/max on stages 0 and 2, the
+    remap's health check once, and no weak-Laplacian run."""
     counts = one_subcycle[3]
     n = CFG.rsplit
     assert {k: v for k, v in counts.items() if v} == {
         "fused_advect_limit_plain": 3 * n, "remap_q_ppm_t_plain": 1,
         "dss_face_plain": 4 * n + WIND_TERMS, "minmax_prep_plain": 1,
-        "neighbor_minmax_plain": 2 * n, "wind_eval_t_plain": n}
+        "neighbor_minmax_plain": 2 * n, "wind_eval_t_plain": n,
+        "remap_health_t_plain": 1}
 
 
 def test_face_subcycle_conserves_mass(models, one_subcycle):

@@ -125,7 +125,7 @@ def test_every_host_op_lies_in_its_span(face, tmp_path, monkeypatch):
     window check inside `remap.health`."""
     m, step, Qt = face
     ev = WindBasis.eval
-    margin = core.ppm_fast_margin
+    health = core.remap_health_t
 
     def marked(name, fn):
         def run(*a, **k):
@@ -133,8 +133,8 @@ def test_every_host_op_lies_in_its_span(face, tmp_path, monkeypatch):
                 return fn(*a, **k)
         return run
     monkeypatch.setattr(WindBasis, "eval", marked("test.eval", ev))
-    monkeypatch.setattr(core, "ppm_fast_margin",
-                        marked("test.margin", margin))
+    monkeypatch.setattr(core, "remap_health_t",
+                        marked("test.margin", health))
     _, prof = _profiled(
         lambda: marked("test.call", step)(Qt, 0))
     tr = _chrome(prof, tmp_path)

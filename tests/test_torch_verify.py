@@ -60,11 +60,12 @@ SMALL = ["--ne", "2", "--nlev", "16", "--qsize", "2", "--tstep", "1200",
          "cpu"]
 # the port's f32 parity bound of the kernels (test_torch_ppm.py PALLAS_TOL)
 F32_TOL = 1e-5
-# the T path through the plain versions: K1, K3, K4, K5, K6 and the wind
-# kernel; no K2, K10
+# the T path through the plain versions: K1, K3, K4, K5, K6, the wind
+# kernel and the health kernel; no K2, K10
 T_PATH = {"fused_advect_limit_plain": 18, "remap_q_ppm_t_plain": 2,
           "dss_face_plain": 4 * 6 + 6, "minmax_prep_plain": 2,
-          "neighbor_minmax_plain": 12, "wind_eval_t_plain": 6}
+          "neighbor_minmax_plain": 12, "wind_eval_t_plain": 6,
+          "remap_health_t_plain": 2}
 
 
 class _Built(Exception):

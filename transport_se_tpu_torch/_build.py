@@ -26,7 +26,7 @@ PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("euler.cu", "ppm.cu", "dss.cu", "limiter.cu", "band.cu",
-           "wind.cu", "lanes.cu")
+           "wind.cu", "lanes.cu", "health.cu")
 # included by the sources; part of the library's hash
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -91,6 +91,11 @@ ENTRIES = {
     "tse_lane_gather": [P, P, LL, LL, LL, LL, P],
     # group full | rows L lo W | stream
     "tse_lane_scatter": [P, P, LL, LL, LL, LL, P],
+    # dp_star dp_ref | part out | columns nk parts | stream
+    "tse_remap_health_t": [P] * 4 + [LL, I, I, P],
+    # nk | out[4]: the health kernel's threads, shared bytes per block,
+    # blocks/SM, blocks of a launch over a large field
+    "tse_remap_health_config": [I, P],
 }
 
 _lock = threading.Lock()

@@ -27,7 +27,8 @@ import torch
 
 KERNELS = ("fused_advect_limit", "laplace_wk_t", "remap_q_ppm_t",
            "dss_face", "minmax_prep", "neighbor_minmax", "limiter_optim",
-           "dss_band", "wind_eval_t", "lane_gather_t", "lane_scatter_t")
+           "dss_band", "wind_eval_t", "lane_gather_t", "lane_scatter_t",
+           "remap_health_t")
 
 COUNTS = {name: 0 for k in KERNELS for name in (k, k + "_plain")}
 _lock = threading.Lock()

@@ -11,16 +11,18 @@ from the repo root, on a CUDA device; under a checker, e.g.
 
 It builds an NE8 face model in f32 and in f64 (perf_config), and launches
 on each: K1 at its three stage kinds (without and with counting), K2, K3
-at alg 0 and 2, K4 in its seven launch cases, K5, K6, the wind kernel in
-its vector form (72 levels) and its scalar form (71 levels, one element),
-then one face subcycle; K7 in its four variants on every shard of an S = 2
-band shard set; K10 on the NE8 std path's stage 0; then one face subcycle
-of NE120's full production configuration (perf_config(120, f32), 35
-tracers x 72 levels: E*16*L = 3.48e9 values, every offset of K1, K3, K4,
-K5 past 2^31; K6's tiles divide the face evenly).  --only K3 launches K3
-alone (both NE8 models).  --builds N first builds the NE30 f32 face model,
-its wind basis (K4) and winds (the wind kernel) and its limiter bounds
-(K5, K6) N times, each followed by a synchronize (run it with
+at alg 0 and 2 with the health kernel, K4 in its seven launch cases, K5,
+K6, the wind kernel in its vector form (72 levels) and its scalar form (71
+levels, one element), then one face subcycle; K7 in its four variants on
+every shard of an S = 2 band shard set; K10 on the NE8 std path's stage
+0; then one face subcycle of NE120's full production configuration
+(perf_config(120, f32), 35 tracers x 72 levels: E*16*L = 3.48e9 values,
+every offset of K1, K3, K4, K5 past 2^31; K6's tiles divide the face
+evenly).  --only K3 launches K3
+and the health kernel alone (both NE8 models).  --builds N first builds
+the NE30 f32 face model, its wind basis (K4) and winds (the wind kernel),
+its limiter bounds (K5, K6) and the remap's health check on its widths
+(the health kernel) N times, each followed by a synchronize (run it with
 CUDA_LAUNCH_BLOCKING=1 to stop at the launch that faults).  Prints one line
 per launch group and "kernel_check: ok" at the end.
 """
@@ -51,6 +53,15 @@ def check_k3(dtype, dev, ne=8):
     for alg in (0, 2):
         remap.remap_q_ppm_t(*args, alg=alg)
         sync(f"{dtype} K3 alg {alg}")
+    check_health(*args[1:], f"{dtype} NE{ne}")
+
+
+def check_health(dps, dpr, what):
+    """The health kernel on the widths, and on their first 5 elements (80
+    columns: a full block of columns and a partial one)."""
+    remap.remap_health_t(dps, dpr)
+    remap.remap_health_t(dps[:5].contiguous(), dpr[:5].contiguous())
+    sync(f"{what} health kernel, {dps.shape[0] * 16} and 80 columns")
 
 
 def check_face(dtype, dev, ne=8):
@@ -147,24 +158,26 @@ def check_ne120(dev):
 
 def check_builds(n, dev, ne=30):
     """The NE ne f32 face model, its wind basis (K4) and winds (the wind
-    kernel) and its limiter bounds (K5, K6), built n times."""
+    kernel), its limiter bounds (K5, K6) and the remap's widths and health
+    check (the health kernel), built n times."""
     for i in range(n):
         m = core.build_model(perf_config(ne, dtype="f32", use_pallas=True),
                              dev)
         E, nq, nk = m.lon.shape[0], m.cfg.qsize, m.cfg.nlev
-        build_wind_basis(m).eval(torch.tensor(m.cfg.tstep, dtype=m.dtype,
-                                              device=dev))
+        *_, divp = build_wind_basis(m).eval(
+            torch.tensor(m.cfg.tstep, dtype=m.dtype, device=dev))
         Qt = core._tp(core.initial_qdp(m), E, nq * nk)
         dp0 = m.dp0col[None, None, :].expand(E, 16, nk).contiguous()
         m.tables.neighbor_minmax(*m.tables.minmax_prep(Qt, dp0, nq))
+        core.remap_levels_t(m, divp, m.cfg.dt_remap)
         sync(f"NE{ne} f32 model build {i + 1} of {n}")
-        del m, Qt, dp0
+        del m, Qt, dp0, divp
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("K3",),
-                    help="launch this kernel alone")
+                    help="launch this kernel (and the health kernel) alone")
     ap.add_argument("--builds", type=int, default=0,
                     help="first build the NE30 f32 model this many times")
     args = ap.parse_args(argv)

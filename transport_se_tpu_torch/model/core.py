@@ -22,7 +22,8 @@ Two pipelines, chosen as the JAX package chooses them
 * T layout (`euler_step_t`, `advect_rk2_t_parts`, `vertical_remap_t`),
   for use_pallas=True with limiter 8 and no diagnostics: the state is
   [E, 16, q*k] for the whole subcycle (point axis second, lane =
-  tracer*nlev + level) and runs the fused stage K1, the remap K3 and, in
+  tracer*nlev + level) and runs the fused stage K1, the remap K3 with
+  its health kernel (the fast search's window check) and, in
   face mode (the production configuration, `perf_config`), the face DSS
   K4 with its fused epilogues, the bound prep K5 and the neighbor min/max
   K6; in gather or segsum mode the DSS, bound prep and neighbor min/max
@@ -60,7 +61,8 @@ from ..ops.euler import (MAX_ITER, fused_advect_limit,
 from ..ops.lanes import lane_gather, lane_scatter
 from ..ops.limiter import limiter_optim_stage
 from ..ops.ppm import ppm_fast_margin, remap_q_ppm, remap_q_ppm_general
-from ..ops.remap import remap_q_ppm_t, remap_q_ppm_t_plain
+from ..ops.remap import (remap_health_t, remap_health_t_plain, remap_q_ppm_t,
+                         remap_q_ppm_t_plain)
 from ..timing import span
 from . import dcmip
 
@@ -519,19 +521,20 @@ def vertical_remap_t(m: Model, Qt, divdp_proj_t, dt_remap, plain=False):
 
     Returns (Qt', ps_v [E,4,4], min_dp): min_dp < 0 signals a negative
     layer thickness (reference abort :1323) or, with ppm_search="fast", a
-    displacement outside the remap's -2..+2 cell window
-    (ppm_fast_margin)."""
+    displacement outside the remap's -2..+2 cell window (the health
+    kernel, remap_health_t: ppm_fast_margin's margin in one pass)."""
     with span("remap"):
-        dp_star, dp_ref, ps_v, min_dp = remap_levels_t(m, divdp_proj_t,
-                                                       dt_remap)
+        dp_star, dp_ref, ps_v, min_dp = remap_levels_t(
+            m, divdp_proj_t, dt_remap, plain=plain)
         return remap_lanes_t(m, Qt, dp_star, dp_ref, plain=plain), ps_v, \
             min_dp
 
 
-def remap_levels_t(m: Model, divdp_proj_t, dt_remap):
+def remap_levels_t(m: Model, divdp_proj_t, dt_remap, plain=False):
     """The remap's tracer-independent part: (dp_star, dp_ref [E,16,k],
     ps_v [E,4,4], min_dp), the Lagrangian and the reference widths, the
-    surface pressure and the health check (see vertical_remap_t)."""
+    surface pressure and the health check (see vertical_remap_t; with the
+    fast search, the health kernel, remap_health_t)."""
     E = divdp_proj_t.shape[0]
     with span("remap.levels"):
         dp_star = m.dp0col[None, None, :] - dt_remap * divdp_proj_t
@@ -545,9 +548,8 @@ def remap_levels_t(m: Model, divdp_proj_t, dt_remap):
             # thickness counts
             min_dp = m.tables.global_min(dp_star.min())
         else:
-            health = torch.minimum(dp_star.min(),
-                                   ppm_fast_margin(dp_star, dp_ref))
-            min_dp = m.tables.global_min(health)
+            health = remap_health_t_plain if plain else remap_health_t
+            min_dp = m.tables.global_min(health(dp_star, dp_ref))
     return dp_star, dp_ref, ps_v.reshape(E, 4, 4), min_dp
 
 
@@ -814,7 +816,7 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
                 del un0_t, vn0_t, divdp_t, dp1_t, dp2_t
             with span("remap"):
                 dp_star, dp_ref, ps_v, min_dp = remap_levels_t(
-                    m, divdp_proj_t, dt_remap)
+                    m, divdp_proj_t, dt_remap, plain=plain)
             del divdp_proj_t
             lo = 0
             for g in groups:

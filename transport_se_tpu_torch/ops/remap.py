@@ -1,4 +1,5 @@
-"""The T-layout PPM remap kernel (K3) and its plain PyTorch version.
+"""The T-layout PPM remap kernel (K3), the remap's health kernel, and their
+plain PyTorch versions.
 
 Port of `transport_se_tpu/ops/pallas_ppm.py` (`_kernel` via
 `remap_q_ppm_pallas_t`): the monotone PPM remap of every (element, point,
@@ -14,6 +15,12 @@ to clamped one-level shifts with the mirror identities of the JAX kernel
 piecewise constant.  Prefix sums run sequentially from the bottom, in both
 the kernel (`csrc/ppm.cu`) and the plain version below, so the two agree
 to the last bit on the card.
+
+`remap_health_t` is the check that guards K3's cell search, once a
+subcycle: the least layer width and the fast search's window margin
+(`ops/ppm.ppm_fast_margin`), in one pass over dp_star and dp_ref
+(`csrc/health.cu`).  Its plain version sums the interfaces sequentially, as
+the kernel does, so the two agree to the last bit on the card.
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel, anything else raises.
@@ -32,6 +39,9 @@ from .ppm import _shift_left_clamp as _shl
 from .ppm import _shift_right_clamp as _shr
 
 N2 = 16
+# the health kernel's blocks per SM are at most the card's resident-block
+# limit (32 on sm_90): its block-minimum buffer holds that many per SM
+HEALTH_PARTS_PER_SM = 32
 
 
 def _cumsum_seq(x):
@@ -82,7 +92,7 @@ def _level_terms(d, dp2):
         dn2, -2, torch.where(dn1, -1, torch.where(
             up3, 3, torch.where(up2, 2, torch.where(up1, 1, 0)))))
     # inside the column for any non-negative widths; the clamp keeps a
-    # corrupt input (which ppm_fast_margin reports) from reading outside
+    # corrupt input (which remap_health_t reports) from reading outside
     shift = torch.clamp(kidx + shift, 0, nk - 1) - kidx
     src = kidx + shift
     dpo_kk = torch.gather(d, -1, src)
@@ -156,8 +166,8 @@ def remap_q_ppm_t(Qt, dp_star, dp_ref, alg=0):
 
     Qt [E,16,q*k] (level minor), dp_star/dp_ref [E,16,k] source and target
     widths with equal column totals.  The cell search covers interface
-    displacements of -2..+2 cells; `ops.ppm.ppm_fast_margin` is the guard
-    that the run stays inside it.  alg 0/1: mirrored ghosts; 2:
+    displacements of -2..+2 cells; `remap_health_t` is the guard that the
+    run stays inside it.  alg 0/1: mirrored ghosts; 2:
     piecewise-constant end cells.  Returns the remapped Qt, conserving each
     column's mass."""
     kind = _device_kind(Qt)
@@ -191,3 +201,65 @@ def kernel_config(nq, nk, dtype):
     fn = _build.entry("tse_ppm_config", _DTYPES[dtype])
     _build.check(fn(int(nq), int(nk), buf), "ppm_config")
     return dict(zip(("rows", "threads", "smem_bytes", "blocks_per_sm"), buf))
+
+
+def remap_health_t_plain(dp_star, dp_ref):
+    """Plain PyTorch version of remap_health_t."""
+    bump("remap_health_t_plain")
+    nk = dp_star.shape[-1]
+    pio = torch.cat([torch.zeros_like(dp_star[..., :1]),
+                     _cumsum_seq(dp_star)], dim=-1)
+    tgt = _cumsum_seq(dp_ref)[..., :-1]              # pin[1..nk-1]
+    j = torch.arange(nk - 1, device=dp_star.device)
+    lo = pio[..., torch.clamp(j - 2, min=0)]
+    hi = pio[..., torch.clamp(j + 4, max=nk)]
+    return torch.minimum(dp_star.min(),
+                         torch.minimum(tgt - lo, hi - tgt).min())
+
+
+def remap_health_t(dp_star, dp_ref):
+    """The remap's health value, 0-dim: the least width of dp_star and
+    the fast cell search's margin (`ops/ppm.ppm_fast_margin`), the least
+    over the interior interfaces j of min(tgt - pio[max(j-2, 0)],
+    pio[min(j+4, k)] - tgt), tgt = pin[j+1], with pio and pin the
+    interface sums of dp_star and dp_ref from the bottom.  Below 0: a
+    negative width, or an interface displaced out of K3's -2..+2 cell
+    window.  A NaN width gives NaN.
+
+    dp_star, dp_ref [E,16,k] (k >= 4), contiguous, of one dtype on one
+    device."""
+    if not isinstance(dp_star, torch.Tensor) or dp_star.dim() != 3:
+        raise ValueError(f"dp_star: expected [E, {N2}, k], got "
+                         f"{tuple(getattr(dp_star, 'shape', ()))}")
+    kind = _device_kind(dp_star)
+    E, _, nk = dp_star.shape
+    dev, f = dp_star.device, dp_star.dtype
+    if E < 1 or nk < 4:
+        raise ValueError(f"dp_star: {E} elements of {nk} levels, need at "
+                         "least 1 of 4")
+    _check("dp_star", dp_star, (E, N2, nk), f, dev)
+    _check("dp_ref", dp_ref, (E, N2, nk), f, dev)
+    if kind == "cpu":
+        return remap_health_t_plain(dp_star, dp_ref)
+    nparts = HEALTH_PARTS_PER_SM * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    part = torch.empty(nparts, dtype=f, device=dev)
+    out = torch.empty((), dtype=f, device=dev)
+    fn = _build.entry("tse_remap_health_t", _DTYPES[f])
+    code = fn(dp_star.data_ptr(), dp_ref.data_ptr(), part.data_ptr(),
+              out.data_ptr(), E * N2, nk, nparts, _stream(dev))
+    _build.check(code, "remap_health_t")
+    bump("remap_health_t")
+    return out
+
+
+def health_kernel_config(nk, dtype):
+    """The health kernel's launch shape for nk levels on the current card:
+    threads (columns) and shared-memory bytes per block, resident blocks
+    per SM and the blocks of a launch over a large field.  Needs a CUDA
+    device."""
+    buf = (ctypes.c_int * 4)()
+    fn = _build.entry("tse_remap_health_config", _DTYPES[dtype])
+    _build.check(fn(int(nk), buf), "remap_health_config")
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm", "blocks"),
+                    buf))
