@@ -103,13 +103,14 @@ the result lines):
      (the benchmark's ne120_perf_f64.q35; 25.96 GiB a state, so the
      subcycle runs in tracer groups, model/core.py plan_groups): (a) at
      NE30 f64, a subcycle in forced groups bit for bit against the
-     ungrouped one; (b) the lane kernels on the NE120 state (3.48e9
+     one-group plan of the same subcycle function, which copies no
+     lanes; (b) the lane kernels on the NE120 state (3.48e9
      values) bit for bit against their plain versions, and a subcycle's
      gathers and scatters timed against their bound; (c) one subcycle
      with the plan, the state handed over: the groups, launch counts,
      min_dp, finiteness, per-tracer mass change, ms (CUDA events), peak
      device memory against NE120_F64_MAX_GIB, and tracers 0-1 bit for
-     bit against a 2-tracer ungrouped run; then one more under
+     bit against a 2-tracer one-group run; then one more under
      torch.profiler: device ms by kernel, the lane kernels' ms against
      their bound, idle
 Then one JSON line of per-kernel results (the launches of K2 from the
@@ -712,7 +713,8 @@ def phase_ne120_f64(torch, mods, dev, t_start, ne=NE120):
     t21 = time.perf_counter()
     torch.cuda.empty_cache()
 
-    # (a) NE30 f64: forced groups against the ungrouped subcycle
+    # (a) NE30 f64: forced groups against the one-group plan of the same
+    # subcycle function
     cfg30 = perf_config(30, dtype="f64", use_pallas=True,
                         limiter_iter_cap=15)
     m30 = core.build_model(cfg30, dev)
@@ -720,25 +722,30 @@ def phase_ne120_f64(torch, mods, dev, t_start, ne=NE120):
     one = core.make_subcycle_fn(m30, io_layout="t")
     check(one.groups == [cfg30.qsize],
           f"NE30 f64 35 tracers: plan {one.groups}, want one group")
+    counters.reset()
     want = one([Q0.clone()], 0)[0]
+    c1 = counters.snapshot()
+    check(c1["lane_gather_t"] == c1["lane_scatter_t"] == 0,
+          f"NE30 f64 one group: launches {c1}")
     counters.reset()
     got = core.make_subcycle_fn(m30, io_layout="t", groups=NE30_F64_GROUPS)(
         [Q0.clone()], 0)[0]
     c30 = counters.snapshot()
     torch.cuda.synchronize()
     check(torch.equal(bits(torch, got), bits(torch, want)),
-          f"NE30 f64: groups {NE30_F64_GROUPS} differ from one group, max "
-          f"abs {rel_err(torch, got, want)[0]:.3e}")
+          f"NE30 f64: groups {NE30_F64_GROUPS} differ from the one-group "
+          f"plan, max abs {rel_err(torch, got, want)[0]:.3e}")
     check(c30["lane_gather_t"] == c30["lane_scatter_t"]
           == len(NE30_F64_GROUPS) and c30["lane_gather_t_plain"] == 0,
           f"NE30 f64 groups: launches {c30}")
     del m30, Q0, one, want, got
     torch.cuda.empty_cache()
     say(f"phase 21 NE30 f64 35 tracers: a subcycle in groups "
-        f"{NE30_F64_GROUPS} bit for bit equal to one group; lane gathers "
-        f"{c30['lane_gather_t']}, scatters {c30['lane_scatter_t']}")
+        f"{NE30_F64_GROUPS} bit for bit equal to the one-group plan (no "
+        f"lane copies); lane gathers {c30['lane_gather_t']}, scatters "
+        f"{c30['lane_scatter_t']}")
 
-    # (b) NE120: a 2-tracer ungrouped run, for tracers 0-1 of the plan's
+    # (b) NE120: a 2-tracer one-group run, for tracers 0-1 of the plan's
     cfg = perf_config(ne, dtype="f64", use_pallas=True, limiter_iter_cap=15)
     m2 = core.build_model(dataclasses.replace(cfg, qsize=NE120_FEW), dev)
     E, nk, nq = m2.lon.shape[0], cfg.nlev, cfg.qsize
@@ -838,7 +845,7 @@ def phase_ne120_f64(torch, mods, dev, t_start, ne=NE120):
             f"{k} {v}" for k, v in c.items() if v)
         + f"; min_dp {float(md):.6g}; finite; per-tracer relative mass "
         f"change max {dmass:.3e}; tracers 0-{NE120_FEW - 1} bit for bit "
-        f"equal to the {NE120_FEW}-tracer ungrouped run; peak allocated "
+        f"equal to the {NE120_FEW}-tracer one-group run; peak allocated "
         f"{peak / 2**30:.2f} GiB ({(peak - at_start) / 2**30:.2f} above the "
         f"{at_start / 2**30:.2f} held before; allowed {NE120_F64_MAX_GIB})")
 

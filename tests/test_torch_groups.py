@@ -4,9 +4,10 @@ and the reader of the lane kernels' device time, on the CPU.
 
 Tracers are independent within a subcycle (tests/test_torch_lanes.py), so
 a subcycle run a group of tracers at a time, over lanes gathered into a
-group buffer and scattered back, gives the bits of the ungrouped one.  The
-planner runs one group wherever four states fit the device: the
-benchmark's f32 cells run the ungrouped code; NE120 with 35 tracers in f64
+group buffer and scattered back, gives the bits of the one-group plan, which
+runs on the state itself.  Both are the one T subcycle of make_subcycle_fn.
+The planner runs one group wherever four states fit the device: the
+benchmark's f32 cells run one group; NE120 with 35 tracers in f64
 (25.96 GiB a state) runs in groups.
 """
 
@@ -61,9 +62,9 @@ def test_grouped_subcycle_is_bitwise_the_ungrouped(dtype, widths):
     handed = run(step, Q0)
     c = counters.snapshot()
     # one gather and one scatter a group and subcycle, by the plain
-    # versions on the CPU
-    assert c["lane_gather_t_plain"] == c["lane_scatter_t_plain"] \
-        == len(widths) * SUBCYCLES
+    # versions on the CPU; one group runs on the state and copies nothing
+    copies = 0 if len(widths) == 1 else len(widths) * SUBCYCLES
+    assert c["lane_gather_t_plain"] == c["lane_scatter_t_plain"] == copies
     assert c["lane_gather_t"] == c["lane_scatter_t"] == 0
     kept_in = Q0.clone()
     kept = run(step, kept_in, handed=False)
@@ -73,6 +74,40 @@ def test_grouped_subcycle_is_bitwise_the_ungrouped(dtype, widths):
         assert torch.equal(a, b) and torch.equal(a, k)
         assert torch.equal(pa, pb) and torch.equal(pa, pk)
         assert ma == mb == mk and ma > 0
+
+
+@pytest.mark.parametrize("widths", [[5], [2, 2, 1]],
+                         ids=lambda w: "-".join(map(str, w)))
+def test_stages_take_the_thicknesses_stage_dps_made(widths, monkeypatch):
+    """Every stage's dp_t is the very tensor stage_dps made for its tracer
+    step, once a subcycle for all groups, and stage 0 is handed no bounds:
+    no stage remakes its thickness or fills a bound pair, in one group or
+    several."""
+    m = model("f64")
+    made, calls = [], []
+
+    def stage_dps(*a, _fn=core.stage_dps):
+        made.append(_fn(*a))
+        return made[-1]
+
+    def euler_step_t(mg, Qt, qmin, qmax, divdp_t, dp_t, uv_t, dt, rhs, *a,
+                     _fn=core.euler_step_t, **kw):
+        bounds = [b[0] if isinstance(b, list) else b for b in (qmin, qmax)]
+        calls.append((rhs, dp_t, bounds))
+        return _fn(mg, Qt, qmin, qmax, divdp_t, dp_t, uv_t, dt, rhs, *a, **kw)
+
+    monkeypatch.setattr(core, "stage_dps", stage_dps)
+    monkeypatch.setattr(core, "euler_step_t", euler_step_t)
+    step = core.make_subcycle_fn(m, io_layout="t", groups=widths)
+    _, _, nstep, md = step([core.initial_qdp_t(m)], 0)
+    assert nstep == CFG.rsplit and float(md) > 0
+    assert len(made) == CFG.rsplit
+    assert len(calls) == len(widths) * CFG.rsplit * 3
+    for c, (rhs, dp_t, bounds) in enumerate(calls):
+        assert rhs == c % 3
+        assert dp_t is made[(c // 3) % CFG.rsplit][rhs]
+        if rhs == 0:
+            assert bounds == [None, None]
 
 
 def test_grouped_std_layout_is_bitwise_the_ungrouped():
@@ -104,8 +139,8 @@ def _held_per_element(dtype):
 @pytest.mark.parametrize("ne", [30, 120])
 def test_the_f32_cells_run_one_group(ne):
     """The benchmark's ne120_perf.q35 and ne30_perf.q35 (35 tracers, 72
-    levels, f32) fit four states on an 80 GB card: one group, the
-    ungrouped code."""
+    levels, f32) fit four states on an 80 GB card: one group, run on the
+    state itself."""
     E = 6 * ne * ne
     held = _held_per_element("f32") * E
     assert core.plan_groups(E, 35, 72, 4, CARD, held) == [35]

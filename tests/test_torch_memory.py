@@ -253,7 +253,7 @@ def test_group_plan_holds_one_state_and_four_group_buffers(dtype,
 
 @pytest.mark.parametrize("dtype", ["f64", "f32"])
 def test_one_group_stays_inside_the_planner_model(dtype, monkeypatch):
-    """The ungrouped subcycle's level fields and bytes at every kernel
+    """The one-group subcycle's level fields and bytes at every kernel
     call, against LEVEL_FIELDS["one"] and subcycle_bytes."""
     m = core.build_model(dataclasses.replace(GROUP_CFG, dtype=dtype), "cpu")
     step = core.make_subcycle_fn(m, io_layout="t")

@@ -19,7 +19,8 @@ Two pipelines, chosen as the JAX package chooses them
   (`ops/limiter.py`).  This is the f64 verification path of the `Config`
   defaults (use_pallas=False), with any DSS mode, limiter 0/4/8,
   diagnostics (the eta_dot/omega piggyback DSS) and either PPM search.
-* T layout (`euler_step_t`, `advect_rk2_t_parts`, `vertical_remap_t`),
+* T layout (`euler_step_t`, `advect_rk2_t_parts`, `remap_levels_t`,
+  `remap_lanes_t`),
   for use_pallas=True with limiter 8 and no diagnostics: the state is
   [E, 16, q*k] for the whole subcycle (point axis second, lane =
   tracer*nlev + level) and runs the fused stage K1, the remap K3 with
@@ -323,22 +324,19 @@ def vertical_remap(m: Model, Qdp, divdp_proj, dt_remap):
 # T layout: one forward-Euler stage
 # ---------------------------------------------------------------------------
 
-def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
+def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, dp_t, uv_t, dt,
                  rhs_multiplier: int, pre_minmax=None, next_dp=None,
-                 next_lap=False, pre_lap=None, avg_t=None, plain=False,
-                 dp_t=None):
+                 next_lap=False, pre_lap=None, avg_t=None, plain=False):
     """One stage: Qt' = DSS[limited(Qt - dt*div(Vstar Qt) + hypervis)].
 
-    Qt [E,16,L]; divdp/uv [E,16,k]; qmin/qmax [E,L].  pre_minmax: this
-    stage's per-element bound prep if the previous stage produced it;
-    next_dp [E,16,k]: produce the NEXT stage's bound prep from this stage's
-    output, and with next_lap also the first biharmonic Laplacian of
-    output/next_dp (face mode only; the gather mode gives None).  pre_lap:
-    that Laplacian, for stage 2.  avg_t: fuse qdp_time_avg into the
-    output.  plain: run the kernels' plain PyTorch versions (test-only).
-    dp_t [E,16,k]: the stage's thickness dp0 - rhs_multiplier*dt*divdp_proj,
-    if the caller made it (the group plan makes it once a subcycle); else
-    the stage makes it from divdp_proj_t.
+    Qt [E,16,L]; divdp/uv [E,16,k]; qmin/qmax [E,L]; dp_t [E,16,k]: the
+    stage's thickness (stage_dps).  pre_minmax: this stage's per-element
+    bound prep if the previous stage produced it; next_dp [E,16,k]:
+    produce the NEXT stage's bound prep from this stage's output, and with
+    next_lap also the first biharmonic Laplacian of output/next_dp (face
+    mode only; the gather mode gives None).  pre_lap: that Laplacian, for
+    stage 2.  avg_t: fuse qdp_time_avg into the output.  plain: run the
+    kernels' plain PyTorch versions (test-only).
     Qt, qmin, qmax, pre_minmax and pre_lap may each be handed over as a
     one-element list (_take): the stage then drops its bounds and bound
     prep once its own bounds are made, the first Laplacian once the
@@ -363,9 +361,6 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
         rsp16 = m.rspheremp.reshape(E, 16)
 
         with span("stage.bounds"):
-            if dp_t is None:
-                dp_t = (m.dp0col[None, None, :]
-                        - rhs_multiplier * dt * divdp_proj_t)
             if pre_minmax is None:
                 qmin_l, qmax_l = tb.minmax_prep(Qt, dp_t, nq, plain=plain)
             else:
@@ -461,80 +456,59 @@ def euler_step_t(m: Model, Qt, qmin, qmax, divdp_t, divdp_proj_t, uv_t, dt,
             return Qt_new, qmin, qmax, None
 
 
-def advect_rk2_t_parts(m: Model, Qt, uv_t, divdp_t, divdp_proj_t, dt_q,
-                       pre_minmax0=None, next_step_dp=None, plain=False,
-                       dps=None):
+def advect_rk2_t_parts(m: Model, Qt, uv_t, divdp_t, dps, dt_q,
+                       pre_minmax0=None, next_step_dp=None, plain=False):
     """T-layout RK2 advection (one tracer step) from precomputed wind parts
-    (uv_t = the mean-flux (u*dp, v*dp) pair, each [E,16,k]).
+    (uv_t = the mean-flux (u*dp, v*dp) pair, each [E,16,k]) and the three
+    stages' thicknesses dps (stage_dps).
 
     Each stage's DSS also produces the NEXT stage's bound prep; stage 1's
     also the first biharmonic Laplacian (face mode); the third stage fuses
     qdp_time_avg and, given next_step_dp, the next tracer step's stage-0
     prep.  Qt and pre_minmax0 may be handed over as one-element lists
     (_take); the stages hand their outputs and bounds on the same way, so
-    each is freed at its last use.  dps: the three stages' thicknesses
-    (dp0, dp1, dp2) [E,16,k] as stage_dps makes them, if the caller made
-    them (the group plan); else they are made here from divdp_proj_t.
-    Returns (Qt', divdp_proj_t, next_minmax-or-None)."""
+    each is freed at its last use.
+    Returns (Qt', next_minmax-or-None)."""
     Qt = _take(Qt)           # the input, kept for the time average
-    E = Qt.shape[0]
     dt2 = dt_q / 2.0
-    if dps is None:
-        dp0_t, dp1_t, dp2_t = stage_dps(m, E, divdp_proj_t, dt_q)
-        sdp = (None, None, None)
-    else:
-        dp0_t, dp1_t, dp2_t = sdp = dps
-    # each stage's output, bounds and bound prep, handed to the next stage
+    dp0_t, dp1_t, dp2_t = dps
+    # each stage's output, bounds and bound prep, handed to the next stage;
+    # stage 0 takes fresh neighbour bounds and starts from none
     box, mn, mx, pre = [None], [None], [None], [None]
-    mn[0] = mx[0] = Qt.new_zeros((E, Qt.shape[2]))
     box[0], mn[0], mx[0], nb = euler_step_t(
-        m, Qt, mn, mx, divdp_t, divdp_proj_t, uv_t, dt2, 0,
-        pre_minmax=pre_minmax0, next_dp=dp1_t, plain=plain, dp_t=sdp[0])
+        m, Qt, mn, mx, divdp_t, dp0_t, uv_t, dt2, 0,
+        pre_minmax=pre_minmax0, next_dp=dp1_t, plain=plain)
     pre[0], nb = nb and nb[0], None
     box[0], mn[0], mx[0], nb = euler_step_t(
-        m, box, mn, mx, divdp_t, divdp_proj_t, uv_t, dt2, 1,
+        m, box, mn, mx, divdp_t, dp1_t, uv_t, dt2, 1,
         pre_minmax=pre, next_dp=dp2_t, next_lap=m.cfg.nu_q > 0,
-        plain=plain, dp_t=sdp[1])
+        plain=plain)
     pre[0], lap = (None, [None]) if nb is None else (nb[0], [nb[1]])
     nb = None
     Qt3, _, _, nb = euler_step_t(
-        m, box, mn, mx, divdp_t, divdp_proj_t, uv_t, dt2, 2,
+        m, box, mn, mx, divdp_t, dp2_t, uv_t, dt2, 2,
         pre_minmax=pre, pre_lap=lap, avg_t=Qt, next_dp=next_step_dp,
-        plain=plain, dp_t=sdp[2])
-    return Qt3, divdp_proj_t, None if nb is None else nb[0]
+        plain=plain)
+    return Qt3, None if nb is None else nb[0]
 
 
-def stage_dps(m: Model, E, divdp_proj_t, dt_q):
-    """The three stages' thicknesses of a tracer step, dp0 + the stage's
-    offset: (dp0 [E,16,k] as an expanded view, dp1, dp2).  Each equals the
-    thickness euler_step_t makes for its stage bit for bit (the same
-    products and difference)."""
+def stage_dps(m: Model, dp0_t, divdp_proj_t, dt_q):
+    """The three stages' thicknesses of a tracer step, dp0 - rhs_multiplier
+    * dt_q/2 * divdp_proj: (dp0_t itself, dp1, dp2) [E,16,k].  dp1 and dp2
+    broadcast dp0 from its column (k values read, not dp0_t's E*16*k)."""
     dt2 = dt_q / 2.0
-    dp0_t = m.dp0col[None, None, :].expand(E, 16, m.cfg.nlev)
-    return (dp0_t, dp0_t - 1.0 * dt2 * divdp_proj_t,
-            dp0_t - 2.0 * dt2 * divdp_proj_t)
-
-
-def vertical_remap_t(m: Model, Qt, divdp_proj_t, dt_remap, plain=False):
-    """Remap Qt from the Lagrangian levels to the reference hybrid levels
-    (prim_advection_mod.F90:1242-1330).
-
-    Returns (Qt', ps_v [E,4,4], min_dp): min_dp < 0 signals a negative
-    layer thickness (reference abort :1323) or, with ppm_search="fast", a
-    displacement outside the remap's -2..+2 cell window (the health
-    kernel, remap_health_t: ppm_fast_margin's margin in one pass)."""
-    with span("remap"):
-        dp_star, dp_ref, ps_v, min_dp = remap_levels_t(
-            m, divdp_proj_t, dt_remap, plain=plain)
-        return remap_lanes_t(m, Qt, dp_star, dp_ref, plain=plain), ps_v, \
-            min_dp
+    dp0 = m.dp0col[None, None, :]
+    return (dp0_t, dp0 - 1.0 * dt2 * divdp_proj_t,
+            dp0 - 2.0 * dt2 * divdp_proj_t)
 
 
 def remap_levels_t(m: Model, divdp_proj_t, dt_remap, plain=False):
     """The remap's tracer-independent part: (dp_star, dp_ref [E,16,k],
     ps_v [E,4,4], min_dp), the Lagrangian and the reference widths, the
-    surface pressure and the health check (see vertical_remap_t; with the
-    fast search, the health kernel, remap_health_t)."""
+    surface pressure and the health check (prim_advection_mod.F90:1242-1330):
+    min_dp < 0 signals a negative layer thickness (reference abort :1323)
+    or, with ppm_search="fast", a displacement outside the remap's -2..+2
+    cell window (the health kernel, remap_health_t)."""
     E = divdp_proj_t.shape[0]
     with span("remap.levels"):
         dp_star = m.dp0col[None, None, :] - dt_remap * divdp_proj_t
@@ -686,16 +660,16 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
     face T subcycle holds at most four of them at any kernel launch
     (tests/test_torch_memory.py); a tensor stays alive in its caller.
 
-    On the T-layout pipeline the subcycle advances its tracers in groups
-    where four states do not fit the device: plan_groups chooses the
-    widths once, here, from the device's total memory (one group on the
-    CPU).  groups: widths that sum to qsize, to force a group plan (any
-    device; tests).  A group plan gathers each group's lanes into a group
-    buffer (`ops/lanes.py`), runs the tracer steps and the remap on it and
-    scatters the result back: into the handed-over state, in place, or
-    into a new state where the caller keeps its tensor.  The winds, the
-    stages' thicknesses and the remap's widths and health check are made
-    once a subcycle, before the groups.
+    On the T-layout pipeline the subcycle advances its tracers in groups:
+    plan_groups chooses the widths once, here, from the device's total
+    memory, one group wherever four states fit (always on the CPU).
+    groups: widths that sum to qsize, to force a plan (any device; tests).
+    One group runs on the state itself.  A plan of several gathers each
+    group's lanes into a group buffer (`ops/lanes.py`), runs the tracer
+    steps and the remap on it and scatters the result back: into the
+    handed-over state, in place, or into a new state where the caller
+    keeps its tensor.  The winds, the stages' thicknesses and the remap's
+    widths and health check are made once a subcycle, before the groups.
 
     One call advances cfg.rsplit tracer steps and performs one vertical
     remap (prim_driver_mod.F90:788-796); nstep counts tracer steps.  The
@@ -769,107 +743,99 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
     from .wind_basis import build_wind_basis
     wb = build_wind_basis(m, plain=plain)
     E = m.lon.shape[0]
-    if groups is None and m.device.type == "cuda":
-        total = torch.cuda.get_device_properties(m.device).total_memory
-        groups = plan_groups(E, cfg.qsize, cfg.nlev, m.lon.element_size(),
-                             total, held=held_bytes(m, wb))
-        if len(groups) == 1:
-            groups = None
-    if groups is not None:
-        groups = [int(g) for g in groups]
-        if sum(groups) != cfg.qsize or min(groups) < 1:
-            raise ValueError(f"groups {groups} do not split the "
-                             f"{cfg.qsize} tracers")
-        # each width's model: the stages read the tracer count from cfg
-        models = {g: dataclasses.replace(
-            m, cfg=dataclasses.replace(cfg, qsize=g)) for g in set(groups)}
+    nk = cfg.nlev
+    if groups is None:
+        groups = [cfg.qsize]
+        if m.device.type == "cuda":
+            total = torch.cuda.get_device_properties(m.device).total_memory
+            groups = plan_groups(E, cfg.qsize, nk, m.lon.element_size(),
+                                 total, held=held_bytes(m, wb))
+    groups = [int(g) for g in groups]
+    if sum(groups) != cfg.qsize or min(groups) < 1:
+        raise ValueError(f"groups {groups} do not split the "
+                         f"{cfg.qsize} tracers")
+    # each width's model: the stages read the tracer count from cfg
+    models = {g: dataclasses.replace(
+        m, cfg=dataclasses.replace(cfg, qsize=g)) for g in set(groups)}
+    one = len(groups) == 1
 
-    def winds_of(nstep):
-        """A tracer step's winds (un0, vn0, divdp, divdp_proj) [E,16,k]."""
-        with span("wind"):
-            un0_t, vn0_t, divdp_t, divdp_proj_t = wb.eval(t_wind_of(nstep))
-            if cfg.qsplit != 1:
-                w = ur_w[nstep % cfg.qsplit]
-                un0_t, vn0_t = un0_t * w, vn0_t * w
-                divdp_t = divdp_t * w
-                divdp_proj_t = divdp_proj_t * w
-            return un0_t, vn0_t, divdp_t, divdp_proj_t
-
-    def subcycle_groups(Qt, nstep: int):
-        # a one-element list hands the state over: each group's result is
-        # written back into it; a tensor stays the caller's, unchanged, and
-        # the result is a new state
+    def run_t(Qt, nstep: int):
+        # a one-element list hands the state over; a tensor stays the
+        # caller's, unchanged
         handed = isinstance(Qt, list)
         X = _take(Qt)
         del Qt
         with span("subcycle"):
-            out = X if handed else torch.empty_like(X)
-            # the tracer-independent work, once: each step's winds and
-            # stage thicknesses, the remap's widths and health check
-            dp0_t = m.dp0col[None, None, :].expand(E, 16,
-                                                   cfg.nlev).contiguous()
-            steps = []
-            for i in range(cfg.rsplit):
-                un0_t, vn0_t, divdp_t, divdp_proj_t = winds_of(nstep + i)
-                _, dp1_t, dp2_t = stage_dps(m, E, divdp_proj_t, dt_q)
-                steps.append(((un0_t, vn0_t), divdp_t, (dp0_t, dp1_t, dp2_t)))
-                del un0_t, vn0_t, divdp_t, dp1_t, dp2_t
-            with span("remap"):
-                dp_star, dp_ref, ps_v, min_dp = remap_levels_t(
-                    m, divdp_proj_t, dt_remap, plain=plain)
-            del divdp_proj_t
+            out = None if one else X if handed else torch.empty_like(X)
+            # contiguous: stage 0's thickness, and the next step's stage-0
+            # dp of the bound-prep kernels
+            dp0_t = m.dp0col[None, None, :].expand(E, 16, nk).contiguous()
+
+            def tracer_independent():
+                """Each step's winds ((un0, vn0), divdp) [E,16,k] and stage
+                thicknesses, then the remap's (dp_star, dp_ref, ps_v,
+                min_dp)."""
+                for n in range(nstep, nstep + cfg.rsplit):
+                    with span("wind"):
+                        un0_t, vn0_t, divdp_t, proj_t = wb.eval(t_wind_of(n))
+                        if cfg.qsplit != 1:
+                            w = ur_w[n % cfg.qsplit]
+                            un0_t, vn0_t = un0_t * w, vn0_t * w
+                            divdp_t, proj_t = divdp_t * w, proj_t * w
+                    yield (un0_t, vn0_t), divdp_t, stage_dps(m, dp0_t, proj_t,
+                                                             dt_q)
+                    del un0_t, vn0_t, divdp_t
+                levels = remap_levels_t(m, proj_t, dt_remap, plain=plain)
+                del proj_t
+                yield levels
+
+            work = tracer_independent()
+            if not one:
+                # several groups keep this work for all of them, so it is
+                # made before the first group's buffers: made between them,
+                # its fields take pieces of the group-sized blocks the
+                # caching allocator hands from stage to stage (5.8 GiB more
+                # reserved at NE120 f64).  One group makes each part where
+                # it is used.
+                steps = [next(work) for _ in range(cfg.rsplit)]
+                with span("remap"):
+                    levels = next(work)
             lo = 0
             for g in groups:
                 mg = models[g]
-                with span("lanes.group"):
+                if one:
+                    box, X = [X], None
+                else:
                     with span("lanes.gather"):
-                        box = [lane_gather(X, lo * cfg.nlev, g * cfg.nlev)]
-                    mm0 = [None]
-                    for i, (uv_t, divdp_t, dps) in enumerate(steps):
-                        with span("tracer_step"):
-                            nd = dp0_t if i < cfg.rsplit - 1 else None
-                            box[0], _, mm0[0] = advect_rk2_t_parts(
-                                mg, box, uv_t, divdp_t, None, dt_q,
-                                pre_minmax0=mm0, next_step_dp=nd,
-                                plain=plain, dps=dps)
-                    with span("remap"):
-                        Qg = remap_lanes_t(mg, _take(box), dp_star, dp_ref,
-                                           plain=plain)
-                    with span("lanes.scatter"):
-                        lane_scatter(Qg, out, lo * cfg.nlev)
-                    del Qg
+                        box = [lane_gather(X, lo * nk, g * nk)]
+                # a step's stage-0 bound prep, from the step before
+                mm0 = [None]
+                for i in range(cfg.rsplit):
+                    with span("tracer_step"):
+                        uv_t, divdp_t, dps = next(work) if one else steps[i]
+                        # step i's stage-3 output bounds over dp0 are step
+                        # i+1's stage-0 prep
+                        nd = dp0_t if i < cfg.rsplit - 1 else None
+                        box[0], mm0[0] = advect_rk2_t_parts(
+                            mg, box, uv_t, divdp_t, dps, dt_q,
+                            pre_minmax0=mm0, next_step_dp=nd, plain=plain)
+                        del uv_t, divdp_t, dps
+                with span("remap"):
+                    if one:
+                        levels = next(work)
+                    dp_star, dp_ref, ps_v, min_dp = levels
+                    Qg = remap_lanes_t(mg, _take(box), dp_star, dp_ref,
+                                       plain=plain)
+                if one:
+                    return Qg, ps_v, nstep + cfg.rsplit, min_dp
+                with span("lanes.scatter"):
+                    lane_scatter(Qg, out, lo * nk)
+                del Qg
                 lo += g
             return out, ps_v, nstep + cfg.rsplit, min_dp
 
-    def subcycle_t(Qt, nstep: int):
-        # a tensor stays the caller's; a one-element list hands it over
-        box = Qt if isinstance(Qt, list) else [Qt]
-        del Qt
-        with span("subcycle"):
-            E = box[0].shape[0]
-            # contiguous: the next step's stage-0 dp of the bound-prep
-            # kernels
-            dp0_t = m.dp0col[None, None, :].expand(E, 16,
-                                                   cfg.nlev).contiguous()
-            divdp_proj_t = None
-            mm0 = [None]  # a step's stage-0 bound prep, from the step before
-            for i in range(cfg.rsplit):
-                with span("tracer_step"):
-                    un0_t, vn0_t, divdp_t, divdp_proj_t = winds_of(nstep)
-                    # step i's stage-3 output bounds over dp0 are step
-                    # i+1's stage-0 prep (stage-0 dp is the static dp0)
-                    nd = dp0_t if i < cfg.rsplit - 1 else None
-                    box[0], divdp_proj_t, mm0[0] = advect_rk2_t_parts(
-                        m, box, (un0_t, vn0_t), divdp_t, divdp_proj_t, dt_q,
-                        pre_minmax0=mm0, next_step_dp=nd, plain=plain)
-                nstep = nstep + 1
-            Qt, ps_v, min_dp = vertical_remap_t(m, _take(box), divdp_proj_t,
-                                                dt_remap, plain=plain)
-            return Qt, ps_v, nstep, min_dp
-
-    run_t = subcycle_t if groups is None else subcycle_groups
     # the plan's group widths, for its callers to report
-    run_t.groups = groups or [cfg.qsize]
+    run_t.groups = groups
     if io_layout == "t":
         return run_t
 
