@@ -21,8 +21,11 @@ the result lines):
      plain version and the chain it replaced, with its registers and
      launch shape;
      K1 bitwise at each stage kind, and its times at limiter iteration
-     caps 1, 2, 4 and 15; K3 bitwise at alg 0 and 2, with its registers,
-     shared memory and resident blocks per SM; K5 bitwise on the sphere
+     caps 1, 2, 4 and 15; K3 bitwise at alg 0 and 2 at 35 tracers and at
+     the f64 cell's tracer-group widths, 9 and 8 (the state's first lanes),
+     each width timed beside its bound with its tile form, with its
+     registers, shared memory, resident blocks and walking warps per SM;
+     K5 bitwise on the sphere
      and on every shard of S = 8, with its registers and spills, launch
      shape and resident blocks per SM; K6 bitwise with its registers,
      launch shape and resident blocks per SM
@@ -378,6 +381,7 @@ def card_line():
 
 # the bool template parameters of the kernels, for the ptxas report
 FLAG_NAMES = {"euler_kernel": ("bih",),
+              "ppm_kernel": ("count", "whole"),
               "dss_face_kernel": ("scale", "avg", "minmax", "lap"),
               "dss_band_kernel": ("scale", "minmax", "lap")}
 
@@ -857,9 +861,10 @@ def phase_ne120_f64(torch, mods, dev, t_start, ne=NE120):
         box[0], _, nstep, _ = step(box, nstep)
         torch.cuda.synchronize()
     by_name, busy, span = device_ms(pr, DeviceType.CUDA, "phase 21")
-    # and one more counting K1's limiter work (counters.WORK), from an
-    # emptied cache: after the earlier phases' leftovers and two subcycles
-    # the cached blocks are too fragmented for its 6.68 GiB Laplacian
+    # and one more counting K1's limiter work and K3's walks
+    # (counters.WORK), from an emptied cache: after the earlier phases'
+    # leftovers and two subcycles the cached blocks are too fragmented for
+    # its 6.68 GiB Laplacian
     torch.cuda.empty_cache()
     counters.work_reset()
     with counters.counting():
@@ -882,7 +887,9 @@ def phase_ne120_f64(torch, mods, dev, t_start, ne=NE120):
         + f", {max(0, len(top) - N_NAMES)} others {rest:.2f}; K1's limiter "
         f"in the third subcycle: {work['limiter_passes'] / rows:.4f} passes "
         f"a column, {work['limiter_capped'] / rows:.4%} of "
-        f"{work['limiter_rows']} columns stopped at the cap of 15; phase "
+        f"{work['limiter_rows']} columns stopped at the cap of 15; K3 walked "
+        f"{work['remap_rewalked']} of {work['remap_columns']} columns again "
+        f"with IEEE divisions; phase "
         f"wall {time.perf_counter() - t21:.1f} s; chip_smoke wall "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -1044,18 +1051,46 @@ def main():
                  lambda: remap.remap_q_ppm_t(Qt, dps, dpr, alg=alg),
                  lambda: remap.remap_q_ppm_t_plain(Qt, dps, dpr, alg=alg),
                  "remap_q_ppm_t", (2 * F + 2 * lv) * es, F * OPS["ppm"])
-        check(all(a == 0.0 for n, e in errs.items() if n.startswith("K3")
-                  for a, _ in e), f"{dtype} K3 is not bitwise equal to its "
-              f"plain version: {[errs[f'K3 alg{a}'] for a in (0, 2)]}")
-        # K3's launch shape: registers and spills (ptxas), shared memory and
-        # resident blocks per SM (the occupancy API)
-        shape = remap.kernel_config(nq, nk, Qt.dtype)
+        # and at the f64 cell's tracer-group widths, on the state's first
+        # n*nk lanes: the streamed tiles in f64, whole columns in f32, each
+        # timed under its own key
+        for n in (9, 8):
+            Qn = Qt[..., :n * nk].contiguous()
+            Fn = E * 16 * n * nk
+            key = (f"remap_q_ppm_t nq{n} "
+                   f"{remap.kernel_config(n, nk, Qt.dtype)['form']}")
+            times[key], bounds[key] = ([], []), []
+            for alg in (0, 2):
+                hold(f"K3 nq{n} alg{alg}",
+                     lambda: remap.remap_q_ppm_t(Qn, dps, dpr, alg=alg),
+                     lambda: remap.remap_q_ppm_t_plain(Qn, dps, dpr,
+                                                       alg=alg),
+                     key, (2 * Fn + 2 * lv) * es, Fn * OPS["ppm"])
+            del Qn
+        k3 = {n: e for n, e in errs.items() if n.startswith("K3")}
+        check(all(a == 0.0 for e in k3.values() for a, _ in e),
+              f"{dtype} K3 is not bitwise equal to its plain version: {k3}")
+        # K3's launch shape: registers and spills (ptxas, whole-column and
+        # streamed forms), then at 35, 9 and 8 tracers (the f32 cells, the
+        # f64 cell's tracer groups) its form, rows a tile, shared memory
+        # and resident blocks per SM (the occupancy API) and the walking
+        # threads an SM, in warps
         regs = [u for u in ptxas_usage(_build.BUILD_DIR / "build.log")
-                if u.startswith(f"ppm_kernel<{dtype}>")]
+                if u.startswith(f"ppm_kernel<{dtype}")
+                and "count" not in u]
+        shapes = []
+        for n in (35, 9, 8):
+            sh = remap.kernel_config(n, nk, Qt.dtype)
+            shapes.append(
+                f"nq {n}: {sh['form']}"
+                + (f" (chunks of {sh['chunk']})" if sh["form"] == "streamed"
+                   else "")
+                + f", {sh['rows']} rows, {sh['threads']} threads, "
+                f"{sh['smem_bytes']} B shared a block, "
+                f"{sh['blocks_per_sm']} blocks/SM, "
+                f"{sh['walkers_per_sm'] / 32:.2f} walking warps/SM")
         line.append(f"K3 {'; '.join(regs) or 'ptxas report not found'}; "
-                    f"{shape['rows']} rows, {shape['threads']} threads, "
-                    f"{shape['smem_bytes']} B shared a block, "
-                    f"{shape['blocks_per_sm']} blocks/SM")
+                    + "; ".join(shapes))
         # the wind kernel on the model's basis at t = tstep, bit for bit
         # (-0 included), then at NE120's element count (the basis tiled);
         # beside it the plain chain, one torch.einsum per field (timed,
@@ -1298,7 +1333,7 @@ def main():
             b_ms = statistics.mean(b for b, _ in bounds[k])
             line.append(f"{k} bound {b_ms:.3f} ms by "
                         + "/".join(sorted({w for _, w in bounds[k]})))
-            if dtype == "f32":
+            if dtype == "f32" and k in KERNELS:
                 results[k] = dict(
                     max_abs_err=max(a for n, e in errs.items()
                                     if n.split()[0] == KEY[k] for a, _ in e),

@@ -251,12 +251,18 @@ def _ppm_columns(E, nq, nk, corrupt=False, seed=0):
 
 
 # K3's edge cases, each (E, qsize, nlev, case): one element; one tracer and
-# 35; 4, 5, 7 and 72 levels; 44 levels (a main loop that its unroll does
-# not divide); a field that is not 16-byte aligned; a row count that leaves
-# the last block partial; displacements that select every shift -2..+3; a
-# corrupt width whose source cell is clamped into the column; tracer mass
-# outside the walk's inline-division range (tiny, huge, -0), whose columns
-# the kernel walks again with IEEE divisions
+# 35; the f64 cell's tracer groups (9 and 8 tracers); 4, 5, 7, 64 and 72
+# levels, 44 (a main loop that its unroll does not divide) and 5, 7, 44
+# and 64 against K3's streamed chunks of 8 levels; a field that is not
+# 16-byte aligned; a row count that leaves the last tile partial (E set
+# from K3's rows a tile); more tiles than K3's persistent blocks hold at
+# once, the last block's turn ragged (E set from its launch shape; f64 at
+# 9 tracers runs streamed tiles, f32 whole-column ones);
+# displacements that select every shift -2..+3; a corrupt width
+# whose source cell is clamped into the column; tracer mass outside the
+# walk's inline-division range (tiny, huge, -0), whose columns the kernel
+# walks again with IEEE divisions, also at a column's top level, after
+# the column's lower chunks have gone out
 K3_CASES = {
     "e1_nq35_nk72": (1, 35, 72, None),
     "nq1_nk72": (2, 1, 72, None),
@@ -265,19 +271,40 @@ K3_CASES = {
     "nq35_nk4": (2, 35, 4, None),
     "nq4_nk5": (3, 4, 5, None),
     "nq35_nk7": (2, 35, 7, None),
-    "partial_block": (4, 3, 16, "partial"),
+    "partial_block": (None, 3, 16, "partial"),
     "every_shift": (3, 4, 16, "shifts"),
     "corrupt_width": (2, 3, 16, "corrupt"),
     "extreme_mass": (2, 3, 72, "extreme"),
+    "nq9_nk72": (3, 9, 72, None),
+    "nq8_nk72": (3, 8, 72, None),
+    "nq9_nk64": (2, 9, 64, None),
+    "nq8_nk44": (2, 8, 44, None),
+    "nq9_nk7": (2, 9, 7, None),
+    "nq8_nk5": (2, 8, 5, None),
+    "nq9_partial_tile": (None, 9, 72, "partial"),
+    "persistent_ragged": (None, 9, 72, "ragged"),
+    "top_rewalk_nq9": (2, 9, 72, "top"),
 }
 
 
-@pytest.mark.parametrize("case", list(K3_CASES))
-@pytest.mark.parametrize("dtype", ["f32", "f64"])
-def test_k3_edge_shapes_bitwise(cuda, dtype, case):
-    """K3 == remap_q_ppm_t_plain bitwise (NaNs equal) at alg 0, 1 and 2."""
+def _k3_inputs(cuda, dtype, case):
+    """(Qt, dp_star, dp_ref) of one of K3_CASES on the card."""
     E, nq, nk, kind = K3_CASES[case]
     f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    if kind in ("partial", "ragged"):
+        shape = remap.kernel_config(nq, nk, f)
+        rows = shape["rows"]
+        if kind == "partial":
+            # two tiles or more, the last one partial
+            E = 1
+            while (E * 16) % rows == 0 or E * 16 <= rows:
+                E += 1
+        else:
+            # one and a half turns of every persistent block, and a part
+            sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+            E = (3 * rows * shape["blocks_per_sm"] * sms) // 32 + 1
+            while (E * 16) % rows == 0:
+                E += 1
     Qt, dps, dpr = (a.to(cuda, f) for a in _ppm_columns(
         E, nq, nk, corrupt=kind == "corrupt"))
     if kind == "extreme":
@@ -286,13 +313,27 @@ def test_k3_edge_shapes_bitwise(cuda, dtype, case):
         Qt[0, 1, 20] = 1e35
         Qt[1, 7, 40] = -0.0
         Qt[1, 2, 10] = 1e-200                    # f64 only (0 in f32)
+    if kind == "top":
+        # out of range at the top level only: tracer 4 of row (0, 3), -0 in
+        # tracer 0 of row (1, 9)
+        Qt[0, 3, 5 * nk - 1] = 1e-38 if f == torch.float32 else 1e-300
+        Qt[1, 9, nk - 1] = -0.0
     if kind == "unaligned":
         buf = torch.empty(Qt.numel() + 1, dtype=f, device=cuda)
         Qt = buf[1:].view_as(Qt).copy_(Qt)
         assert Qt.data_ptr() % 16
-    if kind == "partial":
+    if kind in ("partial", "ragged"):
         rows = remap.kernel_config(nq, nk, f)["rows"]
-        assert (E * 16) % rows, rows
+        assert (E * 16) % rows and E * 16 > rows, (E, rows)
+    return Qt, dps, dpr
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k3_edge_shapes_bitwise(cuda, dtype, case):
+    """K3 == remap_q_ppm_t_plain bitwise (NaNs equal) at alg 0, 1 and 2."""
+    kind = K3_CASES[case][3]
+    Qt, dps, dpr = _k3_inputs(cuda, dtype, case)
     shift = remap._level_terms(dps, dpr)[-1]
     if kind == "shifts":
         assert set(shift.unique().tolist()) == {-2, -1, 0, 1, 2, 3}
@@ -306,6 +347,60 @@ def test_k3_edge_shapes_bitwise(cuda, dtype, case):
         want = remap.remap_q_ppm_t_plain(Qt, dps, dpr, alg=alg)
         same = (got == want) | (torch.isnan(got) & torch.isnan(want))
         assert bool(same.all()), (case, alg, (got - want).abs().max().item())
+
+
+@pytest.mark.parametrize("nq,dtype,form", [
+    (35, "f32", "whole"), (9, "f32", "whole"), (8, "f32", "whole"),
+    (35, "f64", "whole"), (9, "f64", "streamed"), (8, "f64", "streamed")])
+def test_k3_form_by_shape(cuda, nq, dtype, form):
+    """K3's plan at 72 levels: whole-column tiles where they keep 256
+    threads walking an SM (the f32 cells), streamed tiles (with helper
+    warps beside the walking ones) at the f64 cell's tracer groups."""
+    f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    shape = remap.kernel_config(nq, 72, f)
+    assert shape["form"] == form, shape
+    assert shape["blocks_per_sm"] >= 1
+    if form == "whole":
+        assert shape["walkers_per_sm"] >= 256 and shape["chunk"] == 72
+    else:
+        # 11.8 / 12.0 warps at 9 / 8 tracers (whole columns: 4.5 / 4)
+        assert shape["walkers_per_sm"] >= 11 * 32
+        assert shape["chunk"] == 8 and shape["walkers"] < shape["threads"]
+
+
+def _k3_counted(args, alg, plain=False):
+    """K3 (or its plain version) inside counters.counting(): (output, the
+    remap counts it added)."""
+    counters.work_reset()
+    fn = remap.remap_q_ppm_t_plain if plain else remap.remap_q_ppm_t
+    with counters.counting():
+        out = fn(*args, alg=alg)
+    w = counters.work_snapshot()
+    counters.work_reset()
+    return out, (w["remap_columns"], w["remap_rewalked"])
+
+
+@pytest.mark.parametrize("case", ["e1_nq35_nk72", "nq9_nk72", "nq8_nk44",
+                                  "unaligned_nk72", "corrupt_width",
+                                  "extreme_mass", "top_rewalk_nq9",
+                                  "persistent_ragged"])
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k3_counting_form_bitwise_and_counts_plain(cuda, dtype, case):
+    """K3's counting form (launched inside counters.counting()) gives the
+    bits of the form without counting, every column counted once, and the
+    plain version's count of the columns walked again."""
+    args = _k3_inputs(cuda, dtype, case)
+    E, nq = args[0].shape[0], args[0].shape[2] // args[1].shape[2]
+    for alg in (0, 2):
+        counters.work_reset()
+        off = remap.remap_q_ppm_t(*args, alg=alg)
+        assert set(counters.work_snapshot().values()) == {0}
+        on, got = _k3_counted(args, alg)
+        _, want = _k3_counted(args, alg, plain=True)
+        assert torch.equal(off.view(torch.uint8), on.view(torch.uint8))
+        assert got == want and got[0] == E * 16 * nq, (case, alg, got, want)
+        if K3_CASES[case][3] in ("extreme", "top"):
+            assert got[1] > 0
 
 
 # the health kernel's cases, each (E, nlev, case): one element (16

@@ -152,3 +152,85 @@ def test_wrapper_rejects_bad_inputs():
         remap.remap_q_ppm_t(_t(Qt), _t(dp1), _t(dp2), alg=3)
     with pytest.raises(TypeError):
         remap.remap_q_ppm_t(_t(Qt), _t(dp1).float(), _t(dp2))
+
+
+# The plain version's count of the columns K3 walks again with IEEE
+# divisions (ops/remap.rewalked, csrc/common.cuh Bits): crafted columns of
+# one element (16 rows) of 2 tracers over 8 levels, each case one value or
+# one width set, with the columns it sends to the IEEE walk.  f32 ranges:
+# mass 2^-100..2^100, widths 2^-20..2^20, dd*dd 2^-120..2^120; f64 2^-+400
+# and 2^-+800.
+def _crafted(dtype):
+    rng = np.random.default_rng(7)
+    d = rng.uniform(80.0, 120.0, (1, 16, 8))
+    q = 0.5 + 0.1 * rng.uniform(-1.0, 1.0, (1, 16, 2, 8))
+    Qt = (q * d[:, :, None, :]).reshape(1, 16, 16)
+    dpr = d[..., ::-1].copy()
+    return tuple(torch.from_numpy(a).to(dtype) for a in (Qt, d, dpr))
+
+
+def _set_q(value):
+    def edit(Qt, d, dpr):
+        Qt[0, 3, 8 + 4] = value        # tracer 1 of row 3, level 4
+    return edit
+
+
+def _tiny_dd(Qt, d, dpr):
+    # row 6, tracer 0: mixing ratios of about 2^-62 (f32) / 2^-401 (f64)
+    # on a gentle ramp (no extremum, so the parabolas keep their width), so
+    # that dd*dd falls below 2^-120 / 2^-800 while every mass stays inside
+    # its range
+    scale = 2.0 ** (-62 if Qt.dtype == torch.float32 else -401)
+    ramp = 1.0 + 0.1 * torch.arange(8, dtype=torch.float64)
+    Qt[0, 6, :8] = (scale * ramp * d[0, 6]).to(Qt.dtype)
+
+
+def _wide(Qt, d, dpr):
+    big = 3.0e6 if Qt.dtype == torch.float32 else 1e121   # > 2^20 / 2^400
+    d[0, 9, 2] += big
+    dpr[0, 9, 5] += big                 # equal column totals
+
+
+_F32_LO = 2.0 ** -100
+REWALK_CASES = {
+    # name: (edit, dtypes, columns walked again)
+    "none": (lambda *a: None, ("f32", "f64"), 0),
+    "plus_zero": (_set_q(0.0), ("f32", "f64"), 0),
+    "minus_zero": (_set_q(-0.0), ("f32", "f64"), 1),
+    "subnormal": (_set_q(1e-40), ("f32",), 1),
+    "subnormal_f64": (_set_q(1e-310), ("f64",), 1),
+    "ulp_below_2^-100": (_set_q(float(np.nextafter(np.float32(_F32_LO),
+                                                   np.float32(0)))),
+                         ("f32",), 1),
+    "at_2^-100": (_set_q(_F32_LO), ("f32",), 0),
+    "ulp_above_2^-100": (_set_q(float(np.nextafter(np.float32(_F32_LO),
+                                                   np.float32(1)))),
+                         ("f32",), 0),
+    "dd_squared_tiny": (_tiny_dd, ("f32", "f64"), 1),
+    "width_out_of_range": (_wide, ("f32", "f64"), 2),
+}
+
+
+@pytest.mark.parametrize("case,dtype", [
+    (case, dtype) for case, (_, dtypes, _) in REWALK_CASES.items()
+    for dtype in dtypes])
+def test_plain_rewalk_count(case, dtype):
+    """remap_q_ppm_t_plain inside counters.counting() counts every column
+    once and the crafted case's columns as walked again; outside the scope
+    it counts nothing, and counting changes no bit."""
+    from transport_se_tpu_torch import counters
+    edit, _, want = REWALK_CASES[case]
+    f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    Qt, d, dpr = _crafted(f)
+    edit(Qt, d, dpr)
+    counters.work_reset()
+    off = remap.remap_q_ppm_t_plain(Qt, d, dpr)
+    assert set(counters.work_snapshot().values()) == {0}
+    with counters.counting():
+        on = remap.remap_q_ppm_t_plain(Qt, d, dpr)
+    w = counters.work_snapshot()
+    counters.work_reset()
+    assert torch.equal(off.view(-1).view(torch.uint8),
+                       on.view(-1).view(torch.uint8))
+    assert w["remap_columns"] == 16 * 2
+    assert w["remap_rewalked"] == want, (case, dtype, w)

@@ -52,9 +52,12 @@ ENTRIES = {
     "tse_fused_advect_limit": [P] * 14 + [I, I, I, D, D, I, I, D, P, P, I],
     # s met deriv | out | E B | stream
     "tse_laplace_wk_t": [P] * 4 + [I, I, P],
-    # qdp dp_star dp_ref | out | E nq nk alg | stream
-    "tse_remap_q_ppm_t": [P] * 4 + [I, I, I, I, P],
-    # nq nk | out[4]: K3's rows, threads, shared bytes per block, blocks/SM
+    # qdp dp_star dp_ref | out | E nq nk alg | stream | counts (null: K3
+    # without counting; else int64 [slots, 2], counters.WORK_GROUPS["remap"])
+    # slots
+    "tse_remap_q_ppm_t": [P] * 4 + [I, I, I, I, P, P, I],
+    # nq nk | out[6]: K3's rows a tile, threads, shared bytes per block,
+    # blocks/SM, levels a chunk (0: whole columns), walking threads a block
     "tse_ppm_config": [I, I, P],
     # x part rsp avg dp met deriv | out qmin qmax lap | E L nk flags | stream
     "tse_dss_face": [P] * 11 + [I, I, I, I, P],

@@ -34,8 +34,10 @@ stderr also gives the pooled rate, all windows' work over all their wall.
 After the windows
 one subcycle more runs off the clock inside `counters.counting()`, so
 that K1 counts its limiter's passes (stderr: passes a column and the share
-of columns stopped at the cap).  Then the run's min_dp must be positive
-and its state finite, or the bench exits 1 and prints no rate.
+of columns stopped at the cap) and K3 the columns it walks again with IEEE
+divisions (stderr: their share of the remap's columns).  Then the run's
+min_dp must be positive and its state finite, or the bench exits 1 and
+prints no rate.
 
 Environment, read as bench.py reads it: BENCH_NE (30), BENCH_QSIZE (35),
 BENCH_SUBCYCLES (24), BENCH_PALLAS (1; 0 runs the std-layout f32 path
@@ -201,7 +203,8 @@ def measure(cfg, subcycles, device, log):
             + f" ms/subcycle{each}, host {host * 1e3 / subcycles!r} "
             f"ms/subcycle, {work / host!r} gridpoint-tracers/s")
     launches = {k: n for k, n in counters.snapshot().items() if n}
-    # one subcycle more, off the clock, counting K1's limiter work
+    # one subcycle more, off the clock, counting K1's limiter work and K3's
+    # walks
     counters.work_reset()
     with counters.counting():
         box[0], _, nstep, md = step(box, nstep)
@@ -260,6 +263,11 @@ def main(argv=None) -> int:
                 f"{lim['limiter_passes'] / rows!r} passes a column, "
                 f"{100 * lim['limiter_capped'] / rows!r}% capped; "
                 + ", ".join(f"{k} {v}" for k, v in lim.items()))
+        if lim.get("remap_columns"):
+            log(f"NE{ne} remap (K3, the same subcycle): "
+                f"{lim['remap_rewalked']} of {lim['remap_columns']} columns "
+                "walked again with IEEE divisions, "
+                f"{100 * lim['remap_rewalked'] / lim['remap_columns']!r}%")
         if not (r["min_dp"] > 0 and r["finite"]):
             log(f"error: NE{ne}: min_dp {r['min_dp']!r}, finite "
                 f"{r['finite']}: a broken state gives no rate")

@@ -1,5 +1,5 @@
 """Launch counters of the kernels and of their plain PyTorch versions, and
-the work counters of K1's limiter.
+the work counters of K1's limiter and of K3's walks.
 
 Each kernel wrapper adds one to its kernel's count where it launches the
 kernel; each plain version adds one to its own count where it runs.  A run
@@ -13,11 +13,13 @@ The work counters (WORK) are counted on the device, and only inside a
 fused_advect_limit launches K1's counting form, which adds, over its valid
 tracer-level columns, the limiter's clip-and-spread passes, the columns
 and the columns stopped at the cap unconverged into the device's buffer
-(`work_buffer`, WORK_SLOTS rows that K1's blocks add to in turn), and its
-plain version adds the same numbers by the same rule.  Outside the scope,
-a profiled run included, K1 runs its form without counting.
-`work_snapshot()` waits for the device and sums the rows; `work_reset()`
-zeroes them.
+(`work_buffer`, WORK_SLOTS rows that K1's blocks add to in turn), and
+`ops.remap`'s remap_q_ppm_t launches K3's counting form, which adds the
+columns it walked and those it walked again with IEEE divisions into a
+buffer of its own (`work_buffer(device, "remap")`); each plain version
+adds the same numbers by the same rule.  Outside the scope, a profiled run
+included, K1 and K3 run their forms without counting.  `work_snapshot()`
+waits for the device and sums the rows; `work_reset()` zeroes them.
 """
 
 import contextlib
@@ -50,15 +52,20 @@ def snapshot() -> dict:
         return dict(COUNTS)
 
 
-WORK = ("limiter_passes", "limiter_rows", "limiter_capped")
+# the work counters of each counting kernel, in the order of its buffer's
+# columns
+WORK_GROUPS = {"limiter": ("limiter_passes", "limiter_rows",
+                           "limiter_capped"),
+               "remap": ("remap_columns", "remap_rewalked")}
+WORK = tuple(name for g in WORK_GROUPS.values() for name in g)
 WORK_SLOTS = 256
-_work = {}     # device -> int64 [WORK_SLOTS, len(WORK)]
+_work = {}     # (device, group) -> int64 [WORK_SLOTS, len(group)]
 _counting = 0  # open counting() scopes
 
 
 @contextlib.contextmanager
 def counting():
-    """Count K1's limiter work (WORK) in the scope."""
+    """Count K1's limiter work and K3's walks (WORK) in the scope."""
     global _counting
     with _lock:
         _counting += 1
@@ -74,20 +81,23 @@ def counting_on() -> bool:
     return _counting > 0
 
 
-def work_buffer(device) -> torch.Tensor:
-    """The work counters of `device` (made zero on first use)."""
-    device = torch.device(device)
+def work_buffer(device, group: str = "limiter") -> torch.Tensor:
+    """The work counters of `group` (WORK_GROUPS) on `device`, [WORK_SLOTS,
+    len(WORK_GROUPS[group])] (made zero on first use)."""
+    key = (torch.device(device), group)
     with _lock:
-        buf = _work.get(device)
+        buf = _work.get(key)
         if buf is None:
-            buf = _work[device] = torch.zeros(
-                (WORK_SLOTS, len(WORK)), dtype=torch.int64, device=device)
+            buf = _work[key] = torch.zeros(
+                (WORK_SLOTS, len(WORK_GROUPS[group])), dtype=torch.int64,
+                device=key[0])
         return buf
 
 
-def work_add(device, counts: torch.Tensor) -> None:
-    """Add counts [len(WORK)] (a tensor on `device`) to its first row."""
-    work_buffer(device)[0].add_(counts)
+def work_add(device, counts: torch.Tensor, group: str = "limiter") -> None:
+    """Add counts [len(WORK_GROUPS[group])] (a tensor on `device`) to the
+    group's first row."""
+    work_buffer(device, group)[0].add_(counts)
 
 
 def work_reset() -> None:
@@ -99,9 +109,9 @@ def work_reset() -> None:
 def work_snapshot() -> dict:
     """{WORK name: count} summed over every device's rows."""
     with _lock:
-        bufs = list(_work.values())
-    total = [0] * len(WORK)
-    for buf in bufs:
-        for i, v in enumerate(buf.sum(dim=0).tolist()):
-            total[i] += int(v)
-    return dict(zip(WORK, total))
+        bufs = list(_work.items())
+    total = dict.fromkeys(WORK, 0)
+    for (_, group), buf in bufs:
+        for name, v in zip(WORK_GROUPS[group], buf.sum(dim=0).tolist()):
+            total[name] += int(v)
+    return total

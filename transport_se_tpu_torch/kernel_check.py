@@ -11,7 +11,8 @@ from the repo root, on a CUDA device; under a checker, e.g.
 
 It builds an NE8 face model in f32 and in f64 (perf_config), and launches
 on each: K1 at its three stage kinds (without and with counting), K2, K3
-at alg 0 and 2 with the health kernel, K4 in its seven launch cases, K5,
+at alg 0 and 2 (without and with counting, then at 9 and 8 tracers) with
+the health kernel, K4 in its seven launch cases, K5,
 K6, the wind kernel in its vector form (72 levels) and its scalar form (71
 levels, one element), then one face subcycle; K7 in its four variants on
 every shard of an S = 2 band shard set; K10 on the NE8 std path's stage
@@ -36,7 +37,7 @@ import torch
 from . import counters
 from .config import dcmip11_ne8, perf_config
 from .k1_variants import stage_args
-from .k3_variants import remap_args
+from .k3_variants import remap_args, tracers
 from .k7_variants import halo_rows, shard
 from .model import core
 from .model.wind_basis import build_wind_basis
@@ -53,6 +54,14 @@ def check_k3(dtype, dev, ne=8):
     for alg in (0, 2):
         remap.remap_q_ppm_t(*args, alg=alg)
         sync(f"{dtype} K3 alg {alg}")
+        # the counting form, which K3 launches inside counters.counting()
+        with counters.counting():
+            remap.remap_q_ppm_t(*args, alg=alg)
+        sync(f"{dtype} K3 alg {alg}, counting")
+    # the f64 cell's tracer groups (9 and 8 tracers): other tiles
+    for nq in (9, 8):
+        remap.remap_q_ppm_t(*tracers(args, nq))
+        sync(f"{dtype} K3 {nq} tracers")
     check_health(*args[1:], f"{dtype} NE{ne}")
 
 

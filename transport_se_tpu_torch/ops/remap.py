@@ -22,6 +22,11 @@ subcycle: the least layer width and the fast search's window margin
 (`csrc/health.cu`).  Its plain version sums the interfaces sequentially, as
 the kernel does, so the two agree to the last bit on the card.
 
+Inside `counters.counting()` the remap counts its columns and those that
+K3 walks again with IEEE divisions (an operand of its inline divisions out
+of their range, `csrc/common.cuh` Bits): the kernel in its counting form,
+the plain version by the same rule (`rewalked`).
+
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel, anything else raises.
 """
@@ -32,7 +37,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, counters
 from ..counters import bump
 from .euler import _DTYPES, _check, _device_kind, _stream
 from .ppm import _shift_left_clamp as _shl
@@ -42,6 +47,49 @@ N2 = 16
 # the health kernel's blocks per SM are at most the card's resident-block
 # limit (32 on sm_90): its block-minimum buffer holds that many per SM
 HEALTH_PARTS_PER_SM = 32
+
+
+# The inline divisions' operand ranges (csrc/common.cuh Bits) as bounds on
+# the bits of the values, read as the signed integers of their width: a
+# negative value's bits are negative, so they lie outside too.
+_BITS = {
+    torch.float32: dict(view=torch.int32, mag=0x7fffffff,
+                        q=(0x0d800000, 0x71800000),   # 2^-100, 2^100
+                        d=(0x35800000, 0x49800000),   # 2^-20, 2^20
+                        x=(0x03800000, 0x7b800000)),  # 2^-+120
+    torch.float64: dict(view=torch.int64, mag=0x7fffffffffffffff,
+                        q=(0x26f0000000000000, 0x58f0000000000000),  # 2^-+400
+                        d=(0x26f0000000000000, 0x58f0000000000000),
+                        x=(0x0df0000000000000, 0x71f0000000000000)),  # 2^-+800
+}
+
+
+def _outside(x, which):
+    """x outside the range `which` of _BITS (tse::outside)."""
+    b = _BITS[x.dtype]
+    v = x.view(b["view"])
+    lo, hi = b[which]
+    return (v < lo) | (v > hi)
+
+
+def _outside_abs(x, which):
+    """tse::outside_abs: outside, except +0 and the negative of a value
+    inside."""
+    b = _BITS[x.dtype]
+    v = x.view(b["view"])
+    m = v & b["mag"]
+    lo, hi = b[which]
+    return (v != 0) & ((m < lo) | (m > hi))
+
+
+def rewalked(q, dp_star, dd):
+    """The columns K3 walks again with IEEE divisions, bool [..., nq]: a
+    width of the row outside the divisions' range, or at some level a mass
+    q, or a dd*dd of the limiter, outside its range.  q and dd [..., nq,
+    nk], dp_star [..., nk]."""
+    row = _outside(dp_star, "d").any(-1)[..., None]
+    return (row | _outside_abs(q, "q").any(-1)
+            | _outside_abs(dd * dd, "x").any(-1))
 
 
 def _cumsum_seq(x):
@@ -137,6 +185,11 @@ def remap_q_ppm_t_plain(Qt, dp_star, dp_ref, alg=0):
     al = torch.where(extremum, a, al)
     ar = torch.where(extremum, a, ar)
     dd = ar - al
+    if counters.counting_on():
+        again = rewalked(q, dp_star, dd)
+        counters.work_add(Qt.device, torch.stack(
+            [torch.tensor(again.numel(), device=Qt.device),
+             again.sum()]).to(torch.int64), "remap")
     t = dd * (a - 0.5 * (al + ar))
     curv = dd * dd / a.new_full((), 6.0)
     al = torch.where(t > curv, 3.0 * a - 2.0 * ar, al)
@@ -169,7 +222,10 @@ def remap_q_ppm_t(Qt, dp_star, dp_ref, alg=0):
     displacements of -2..+2 cells; `remap_health_t` is the guard that the
     run stays inside it.  alg 0/1: mirrored ghosts; 2:
     piecewise-constant end cells.  Returns the remapped Qt, conserving each
-    column's mass."""
+    column's mass.  Inside counters.counting() it launches K3's counting
+    form, which adds the columns and the columns walked again into
+    counters.work_buffer(device, "remap") (the plain version adds the same
+    numbers)."""
     kind = _device_kind(Qt)
     E, _, qk = Qt.shape
     nk = dp_star.shape[-1]
@@ -185,8 +241,11 @@ def remap_q_ppm_t(Qt, dp_star, dp_ref, alg=0):
         return remap_q_ppm_t_plain(Qt, dp_star, dp_ref, alg=alg)
     out = torch.empty_like(Qt)
     fn = _build.entry("tse_remap_q_ppm_t", _DTYPES[f])
+    work = counters.work_buffer(dev, "remap") if counters.counting_on() \
+        else None
     code = fn(Qt.data_ptr(), dp_star.data_ptr(), dp_ref.data_ptr(),
-              out.data_ptr(), E, qk // nk, nk, int(alg), _stream(dev))
+              out.data_ptr(), E, qk // nk, nk, int(alg), _stream(dev),
+              None if work is None else work.data_ptr(), counters.WORK_SLOTS)
     _build.check(code, "remap_q_ppm_t")
     bump("remap_q_ppm_t")
     return out
@@ -194,13 +253,22 @@ def remap_q_ppm_t(Qt, dp_star, dp_ref, alg=0):
 
 def kernel_config(nq, nk, dtype):
     """The kernel's launch shape for nq tracers of nk levels on the current
-    card: rows and threads per block, shared-memory bytes per block and
-    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    card: its form ("whole": whole-column tiles, "streamed": columns
+    streamed through shared memory in chunks), rows a tile, threads and
+    shared-memory bytes per block, resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), levels a chunk (nk for
+    whole columns), walking threads per block, and walking threads per SM.
     Needs a CUDA device."""
-    buf = (ctypes.c_int * 4)()
+    buf = (ctypes.c_int * 6)()
     fn = _build.entry("tse_ppm_config", _DTYPES[dtype])
     _build.check(fn(int(nq), int(nk), buf), "ppm_config")
-    return dict(zip(("rows", "threads", "smem_bytes", "blocks_per_sm"), buf))
+    out = dict(zip(("rows", "threads", "smem_bytes", "blocks_per_sm",
+                    "chunk", "walkers"), buf))
+    out["form"] = "streamed" if out["chunk"] else "whole"
+    out["chunk"] = out["chunk"] or int(nk)
+    out["walkers_per_sm"] = out["blocks_per_sm"] * min(
+        out["walkers"], out["rows"] * int(nq))
+    return out
 
 
 def remap_health_t_plain(dp_star, dp_ref):
