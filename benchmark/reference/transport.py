@@ -4,25 +4,39 @@ cubed sphere, in plain PyTorch, std layout Qdp [E, q, k, 4, 4].
 A frozen copy of the port's std-layout pipeline (the reference model's
 `Prim_Advec_Tracers_remap_rk2`, `euler_step`, `qdp_time_avg` and
 `vertical_remap`, prim_advection_mod.F90:579-1330) and of the DCMIP 1-1
-fields (dcmip_123_mod.F90:85), written without the port's kernels, tables
-or dispatch:
+and 1-2 fields (dcmip_123_mod.F90:85 and :279), written without the
+port's kernels, tables or dispatch:
 
 * three forward-Euler stages of dt/2 with rhs_multiplier 0, 1, 2, then
   (Qdp + 2 Qdp3) / 3; the limiter bounds of each stage from the element and
   its neighbours; the biharmonic hyperviscosity on stage 2;
 * limiter 8 (prim_advection_mod.F90:976) on rows of 16 points, at most
-  `max_iter` clip-and-redistribute passes;
+  `limiter_iter_cap` clip-and-redistribute passes (0: the reference's
+  np*np-1 = 15, :1009);
 * the DSS as the sum over each global point's slots in ascending order;
   the neighbour bounds as the min/max over every element that shares a
   point with the element;
-* the winds evaluated directly, with the reference's one-step lag;
+* the winds of the configuration's test case evaluated directly, with the
+  reference's one-step lag;
 * the PPM remap onto the hybrid levels every rsplit steps.
+
+The test case (`test_case` of the configuration, "dcmip1-1" where it is
+absent) chooses the horizontal winds and the named initial fields; a test
+case not shipped here raises.  The subcycle needs nothing of a test case
+beyond its horizontal winds: the levels are Lagrangian, so the vertical
+motion is the divergence of the horizontal mass flux (dp_star) followed by
+the remap, and the prescribed vertical velocity of 1-1 and 1-2 feeds only
+the reference model's diagnostics.  Both tests set the surface pressure to
+p0 (dcmip_123_mod.F90, test 1-1 and test 1-2 alike), so the stages start
+from the same dp0col in both.
 
 Each tracer advects on its own: dp and the winds are prescribed, and the
 limiter, DSS, hyperviscosity and remap of a tracer touch only that tracer,
 so the reference runs any subset of the tracers.  It imports nothing of the
 program.  Derivatives are matrix products (`torch.einsum`), so the TF32
-switch of the control reaches them.
+switch of the control reaches them.  Elements are in raster order
+(`grid.py`); a program that keeps them in another order is mapped onto
+this one by the harness.
 """
 
 from __future__ import annotations
@@ -45,14 +59,46 @@ P0 = 100000.0
 T0 = 300.0
 SCALE_HEIGHT = RGAS * T0 / G
 
+SECPDAY = 86400.0
+# the reference's limiter passes, np*np-1 (prim_advection_mod.F90:1009): a
+# limiter_iter_cap of 0 is this full iteration
+LIMITER_PASSES = 15
+
 # DCMIP 1-1 (dcmip_123_mod.F90:116-129)
-TAU = 12.0 * 86400.0
+TAU = 12.0 * SECPDAY
 U0 = 2.0 * PI * REARTH / TAU
 K0 = 10.0 * REARTH / TAU
 OMEGA0 = 23000.0 * PI / TAU
 RR, ZZ, Z0 = 0.5, 1000.0, 5000.0
 LAMBDA0, LAMBDA1 = 5.0 * PI / 6.0, 7.0 * PI / 6.0
 BS, ZTOP = 0.2, 12000.0
+
+# DCMIP 1-2 (dcmip_123_mod.F90:309-319): a period of one day, zonal speed
+# u0 (m/s), vertical speed w0 (m/s), K Hadley-like cells, the tracer layer
+# between z1 and z2 (m) centred on z0, the model top ztop (m)
+TAU_12 = 1.0 * SECPDAY
+U0_12 = 40.0
+W0_12 = 0.15
+K_12 = 5.0
+Z1_12, Z2_12 = 2000.0, 5000.0
+Z0_12 = 0.5 * (Z1_12 + Z2_12)
+ZTOP_12 = 12000.0
+
+# The named initial fields of each test case in the reference model's
+# tracer order, as its wrapper fills them (dcmip_wrapper_mod.F90:215-243):
+# 1-1 q1-q4, 1-2 the checkerboard, then the Hadley layer; every further
+# tracer holds the checkerboard.
+LANE_FIELDS = {"dcmip1-1": ("q1", "q2", "q3", "q4"),
+               "dcmip1-2": ("checkerboard", "hadley")}
+
+
+def lane_fields(test_case, qsize):
+    """The initial field of each of qsize tracers, in the reference
+    model's order."""
+    if test_case not in LANE_FIELDS:
+        raise ValueError(f"the reference ships no test case {test_case!r}")
+    names = list(LANE_FIELDS[test_case])
+    return (names + ["checkerboard"] * qsize)[:qsize]
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
@@ -106,9 +152,11 @@ class Model:
 
 def build_model(cfg: dict, device) -> Model:
     """The reference model of a configuration file's dict (ne, nlev,
-    dtype) on device: grid and levels in float64, cast once."""
+    dtype, test_case) on device: grid and levels in float64, cast once."""
     if cfg["nlev"] != 72:
         raise ValueError("the reference ships the ACME 72-level coordinate")
+    cfg = dict(cfg, test_case=cfg.get("test_case", "dcmip1-1"))
+    lane_fields(cfg["test_case"], 0)        # raises for a case not shipped
     g = gridmod.build(cfg["ne"])
     hyai, hybi, hyam, hybm = acme72()
     etai = hyai + hybi
@@ -129,15 +177,42 @@ def build_model(cfg: dict, device) -> Model:
 
 
 # ---------------------------------------------------------------------------
-# DCMIP 1-1: initial tracers and winds
+# DCMIP 1-1 and 1-2: initial tracers and winds
 # ---------------------------------------------------------------------------
 
+def _height(m: Model):
+    """The levels' heights [1, K, 1, 1] (z = H log(p0/p))."""
+    return SCALE_HEIGHT * torch.log(1.0 / m.etam[None, :, None, None])
+
+
+def _checkerboard(m: Model, shape):
+    term = torch.sin(9.0 * m.lon) * torch.sin(9.0 * m.lat)
+    chk = torch.where(term < 0.0, m.lon.new_tensor(0.0),
+                      m.lon.new_tensor(1.0))
+    return torch.broadcast_to(chk[:, None], shape)
+
+
 def initial_fields(m: Model):
-    """The initial mixing ratios of DCMIP 1-1 as the reference model's
-    wrapper fills a 35-tracer run: {"q1".."q4", "checkerboard"}, each
-    [E, K, 4, 4] in the model dtype."""
-    lon, lat, eta = m.lon[:, None], m.lat[:, None], m.etam[None, :, None, None]
-    height = SCALE_HEIGHT * torch.log(1.0 / eta)
+    """The named initial mixing ratios of the model's test case, each
+    [E, K, 4, 4] in the model dtype: 1-1 {"q1".."q4", "checkerboard"}, 1-2
+    {"checkerboard", "hadley"} (`lane_fields` places them)."""
+    if m.cfg["test_case"] == "dcmip1-2":
+        return _fields_12(m)
+    return _fields_11(m)
+
+
+def winds(m: Model, time):
+    """Horizontal winds (zonal, meridional) of the model's test case at
+    time -> [E, K, 2, 4, 4]."""
+    if m.cfg["test_case"] == "dcmip1-2":
+        return _winds_12(m, time)
+    return _winds_11(m, time)
+
+
+def _fields_11(m: Model):
+    """dcmip_123_mod.F90:214-250."""
+    lon, lat = m.lon[:, None], m.lat[:, None]
+    height = _height(m)
     sin_tmp = torch.sin(lat) * math.sin(0.0)
     cos_tmp = torch.cos(lat) * math.cos(0.0)
     r1 = torch.arccos(torch.clamp(
@@ -154,15 +229,12 @@ def initial_fields(m: Model):
     q3 = torch.where((height > Z0) & (torch.abs(lat) < 0.125), tenth, q3)
     q3 = torch.broadcast_to(q3, q1.shape)
     q4 = 1.0 - 0.3 * (q1 + q2 + q3)
-    term = torch.sin(9.0 * m.lon) * torch.sin(9.0 * m.lat)
-    chk = torch.where(term < 0.0, m.lon.new_tensor(0.0),
-                      m.lon.new_tensor(1.0))
-    chk = torch.broadcast_to(chk[:, None], q1.shape)
-    return {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "checkerboard": chk}
+    return {"q1": q1, "q2": q2, "q3": q3, "q4": q4,
+            "checkerboard": _checkerboard(m, q1.shape)}
 
 
-def winds(m: Model, time):
-    """Horizontal winds (zonal, meridional) at time -> [E, K, 2, 4, 4]."""
+def _winds_11(m: Model, time):
+    """dcmip_123_mod.F90:161-184."""
     lon, lat, eta = m.lon[:, None], m.lat[:, None], m.etam[None, :, None, None]
     time = torch.as_tensor(time, dtype=lon.dtype, device=lon.device)
     p = P0 * eta
@@ -178,6 +250,39 @@ def winds(m: Model, time):
     u = (K0 * torch.sin(lonp) ** 2 * torch.sin(2.0 * lat) * cost
          + U0 * torch.cos(lat) + ud)
     v = K0 * torch.sin(2.0 * lonp) * torch.cos(lat) * cost
+    return torch.stack(torch.broadcast_tensors(u, v), dim=2)
+
+
+def _fields_12(m: Model):
+    """The Hadley layer, 0.5 (1 + cos(2 pi (z - z0) / (z2 - z1))) between
+    z1 and z2 and 0 elsewhere, the same at every point of a level, and the
+    checkerboard."""
+    height = _height(m)
+    shape = m.lon.shape[:1] + m.etam.shape + m.lon.shape[1:]
+    layer = 0.5 * (1.0 + torch.cos(2.0 * PI * (height - Z0_12)
+                                   / (Z2_12 - Z1_12)))
+    q = torch.where((height > Z1_12) & (height < Z2_12), layer,
+                    height.new_tensor(0.0))
+    return {"checkerboard": _checkerboard(m, shape),
+            "hadley": torch.broadcast_to(q, shape)}
+
+
+def _winds_12(m: Model, time):
+    """u = u0 cos(lat); v = -(rho0/rho) a w0 pi / (K ztop) cos(lat)
+    sin(K lat) cos(pi z / ztop) cos(pi t / tau), with rho0/rho = p0/p at the
+    temperature T0, and z and p held at the model top above it (p >= ptop,
+    z <= ztop), as the 1-1 winds hold p."""
+    lon, lat = m.lon[:, None], m.lat[:, None]
+    time = torch.as_tensor(time, dtype=lon.dtype, device=lon.device)
+    height = _height(m)
+    p = P0 * m.etam[None, :, None, None]
+    ptop = P0 * torch.exp(lon.new_tensor(-ZTOP_12 / SCALE_HEIGHT))
+    rho0_rho = P0 / torch.maximum(p, ptop)
+    ztop_frac = torch.clamp(height / ZTOP_12, max=1.0)
+    u = U0_12 * torch.cos(lat)
+    v = -rho0_rho * (REARTH * W0_12 * PI) / (K_12 * ZTOP_12) \
+        * torch.cos(lat) * torch.sin(K_12 * lat) * torch.cos(PI * ztop_frac) \
+        * torch.cos(PI * time / TAU_12)
     return torch.stack(torch.broadcast_tensors(u, v), dim=2)
 
 
@@ -467,8 +572,8 @@ def subcycle(m: Model, Qdp, nstep: int):
     for _ in range(cfg["rsplit"]):
         vn0 = winds(m, float(max(nstep - 1, 0)) * dt) \
             * m.dp0col[None, :, None, None, None]
-        Qdp, divdp_proj = tracer_step(m, Qdp, vn0, dt,
-                                      cfg["limiter_iter_cap"])
+        Qdp, divdp_proj = tracer_step(
+            m, Qdp, vn0, dt, cfg["limiter_iter_cap"] or LIMITER_PASSES)
         nstep += 1
     Qdp, min_dp = vertical_remap(m, Qdp, divdp_proj, dt * cfg["rsplit"])
     return Qdp, nstep, min_dp
