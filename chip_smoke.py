@@ -45,7 +45,8 @@ the result lines):
      and resident blocks per SM; then on the nine limiter inputs of the
      third subcycle of phase 12's configuration (steady state, f64):
      bitwise, its time, and the share of rows limited and relaxed and the
-     histogram of iteration passes per row
+     histogram of iteration passes per row; K10's counting form on them
+     bitwise with the plain version's counts: passes a row, capped share
   9. one NE8 f64 std-layout subcycle in gather and in segsum mode, kernels
      against plain versions; segsum twice, bitwise
  10. the CLI (python -m transport_se_tpu_torch.main, one subprocess per
@@ -381,6 +382,7 @@ def card_line():
 
 # the bool template parameters of the kernels, for the ptxas report
 FLAG_NAMES = {"euler_kernel": ("bih",),
+              "limiter_kernel": ("count",),
               "ppm_kernel": ("count", "whole"),
               "dss_face_kernel": ("scale", "avg", "minmax", "lap"),
               "dss_band_kernel": ("scale", "minmax", "lap")}
@@ -1587,11 +1589,35 @@ def main():
         del want, got
     ms_s = timed(torch, lambda: [limiter.limiter_optim_stage(*a)
                                  for a in steady])
+    # K10's counting form on the same launches: the bits of the form
+    # without counting, and the plain version's counts
+    counted = {}
+    for plain in (False, True):
+        counters.work_reset()
+        with counters.counting():
+            outs = [limiter.limiter_optim_stage(*a, plain=plain)
+                    for a in steady]
+            counted[plain] = counters.work_snapshot()
+        if not plain:
+            check(all(torch.equal(bits(torch, g), bits(torch, w))
+                      for a, o in zip(steady, outs)
+                      for g, w in zip(o, limiter.limiter_optim_stage(*a))),
+                  "K10's counting form: not bitwise equal to the form "
+                  "without counting")
+        del outs
+    counters.work_reset()
+    work, nrows = counted[False], sum(a[3].numel() for a in steady)
+    check(work == counted[True] and work["limiter_rows"] == nrows
+          and nrows <= work["limiter_passes"] <= 15 * nrows,
+          f"K10's counts {work}, plain {counted[True]}, rows {nrows}")
     say(f"phase 8 K10 on the steady-state std NE30 f64 DCMIP 1-2 input (the "
         f"{len(steady)} launches of the third subcycle), stage and [N, 16] "
         f"operands bitwise equal to the plain version: {ms_s:.3f} ms for "
         f"the {len(steady)}, {ms_s / len(steady):.3f} ms a launch; "
-        + k10v.describe(steady))
+        + k10v.describe(steady)
+        + f"; counting form bitwise equal, the plain version's counts: "
+        f"{work['limiter_passes'] / nrows:.4f} passes a row, "
+        f"{work['limiter_capped'] / nrows:.4%} capped")
     del steady
     torch.cuda.empty_cache()
 

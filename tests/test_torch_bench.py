@@ -88,16 +88,18 @@ def test_bench_cpu_ne8(small_env, capsys, pallas):
     launched = "fused_advect_limit_plain 27" if pallas == "1" else \
         "limiter_optim_plain 27"
     assert launched in cap.err
-    # K1's limiter counted over one subcycle after the windows: 9 stages
-    # of every (element, lane) column; the row limiter K10 counts nothing
+    # the limiter counted over one subcycle after the windows: 9 stages of
+    # every (element, lane) column of K1 (cap 4) or (element, tracer,
+    # level) row of the row limiter K10 (15 passes)
     rows = 9 * 6 * 8 * 8 * 2 * 72
-    counted = re.search(r"passes a column, \S+% capped; limiter_passes "
-                        r"(\d+), limiter_rows (\d+)", cap.err)
-    if pallas == "1":
-        assert int(counted.group(2)) == rows
-        assert rows <= int(counted.group(1)) <= 4 * rows
-    else:
-        assert counted is None
+    counted = re.search(r"\((K1|K10), one subcycle after the windows\): "
+                        r"\S+ passes a (column|row), \S+% capped; "
+                        r"limiter_passes (\d+), limiter_rows (\d+)", cap.err)
+    kernel, row, cap_ = (("K1", "column", 4) if pallas == "1"
+                         else ("K10", "row", 15))
+    assert counted.group(1, 2) == (kernel, row)
+    assert int(counted.group(4)) == rows
+    assert rows <= int(counted.group(3)) <= cap_ * rows
 
 
 def test_settings_parse_as_bench_py():

@@ -1082,6 +1082,62 @@ def test_k10_edge_shapes_bitwise(cuda, dtype, case):
             case, (a - b).abs().max().item())
 
 
+def _k10_counted(args, plain=False):
+    """K10 (or its plain version) on the std stage's operands inside
+    counters.counting(): (outputs, the limiter counts it added)."""
+    counters.work_reset()
+    with counters.counting():
+        out = limiter.limiter_optim_stage(*args, plain=plain)
+        work = counters.work_snapshot()
+    counters.work_reset()
+    return out, work
+
+
+def _k10_counting_holds(args):
+    """K10's counting form gives the bits of the form without counting and
+    the plain version's counts -> those counts."""
+    off = limiter.limiter_optim_stage(*args)
+    on, got = _k10_counted(args)
+    for a, b in zip(off, on):
+        assert torch.equal(_bits(a), _bits(b))
+    _, want = _k10_counted(args, plain=True)
+    assert got == want
+    return got
+
+
+@pytest.mark.parametrize("case", list(K10_CASES))
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_k10_counting_form_edge_shapes(cuda, dtype, case):
+    """On K10's edge shapes the counting form changes no bit and counts
+    the plain version's passes, rows and capped rows over the valid rows
+    (element 1's weights sum below 0 where E > 2)."""
+    E, q, k = K10_CASES[case]
+    f = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    args = [torch.from_numpy(a).to(cuda, f) for a in
+            _k10_edge_rows(E, q, k, dtype, E * q + k)]
+    got = _k10_counting_holds(args)
+    rows = (E - (E > 2)) * q * k
+    assert got["limiter_rows"] == rows
+    assert rows <= got["limiter_passes"] <= 15 * rows
+
+
+def test_k10_counting_form_steady_ne30(cuda):
+    """On the nine limiter launches of a steady-state std NE30 f64 DCMIP
+    1-2 subcycle (chip_smoke phase 8) the counting form changes no bit,
+    counts the plain version's numbers, every row of a launch, and 1 to
+    15 passes a row."""
+    from transport_se_tpu_torch.config import dcmip12_ne30
+    from transport_se_tpu_torch.k10_variants import steady_inputs
+    steady = steady_inputs(build_model(dcmip12_ne30(), cuda))
+    assert len(steady) == 9
+    for args in steady:
+        got = _k10_counting_holds(args)
+        rows = args[0].shape[0] * args[0].shape[1] * args[0].shape[2]
+        assert got["limiter_rows"] == rows
+        assert rows <= got["limiter_passes"] <= 15 * rows
+        assert 0 <= got["limiter_capped"] <= rows
+
+
 def _k5_edge_fields(E, nq, nk, dtype, seed):
     """x [E,16,nq*nk], dp [E,16,nk] from a numpy seed, with the edges of
     K5's inline division (tests/test_torch_dss_face.py

@@ -76,6 +76,9 @@ ENTRIES = {
     # ptens sph dpmass minp maxp | out minp_o maxp_o | n sph_rep sph_inner
     # dp_rep dp_inner | tol | stream
     "tse_limiter_optim": [P] * 8 + [LL] * 5 + [D, P],
+    # the same | counts (int64 [slots, 3], counters.WORK_GROUPS["limiter"])
+    # slots: K10's counting form
+    "tse_limiter_optim_count": [P] * 8 + [LL] * 5 + [D, P, P, I],
     # out[3]: K10's lanes a row, threads, blocks/SM
     "tse_limiter_config": [P],
     # L nk | out[5]: K5's lanes a thread, threads, lane groups an element,

@@ -33,9 +33,10 @@ row's value is the median window's rate (not bench.py's best of two);
 stderr also gives the pooled rate, all windows' work over all their wall.
 After the windows
 one subcycle more runs off the clock inside `counters.counting()`, so
-that K1 counts its limiter's passes (stderr: passes a column and the share
-of columns stopped at the cap) and K3 the columns it walks again with IEEE
-divisions (stderr: their share of the remap's columns).  Then the run's
+that the limiter counts its passes (stderr: passes a column of K1 on the
+T path, a row of K10 on the std path, and the share stopped at the cap)
+and K3 the columns it walks again with IEEE divisions (stderr: their
+share of the remap's columns).  Then the run's
 min_dp must be positive and its state finite, or the bench exits 1 and
 prints no rate.
 
@@ -203,8 +204,8 @@ def measure(cfg, subcycles, device, log):
             + f" ms/subcycle{each}, host {host * 1e3 / subcycles!r} "
             f"ms/subcycle, {work / host!r} gridpoint-tracers/s")
     launches = {k: n for k, n in counters.snapshot().items() if n}
-    # one subcycle more, off the clock, counting K1's limiter work and K3's
-    # walks
+    # one subcycle more, off the clock, counting the limiter's work (K1 or
+    # K10) and K3's walks
     counters.work_reset()
     with counters.counting():
         box[0], _, nstep, md = step(box, nstep)
@@ -259,8 +260,10 @@ def main(argv=None) -> int:
         lim = r.get("limiter") or {}
         if lim.get("limiter_rows"):
             rows = lim["limiter_rows"]
-            log(f"NE{ne} limiter (K1, one subcycle after the windows): "
-                f"{lim['limiter_passes'] / rows!r} passes a column, "
+            kernel, row = ("K1", "column") if cfg.use_pallas else ("K10",
+                                                                   "row")
+            log(f"NE{ne} limiter ({kernel}, one subcycle after the windows): "
+                f"{lim['limiter_passes'] / rows!r} passes a {row}, "
                 f"{100 * lim['limiter_capped'] / rows!r}% capped; "
                 + ", ".join(f"{k} {v}" for k, v in lim.items()))
         if lim.get("remap_columns"):

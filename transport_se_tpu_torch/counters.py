@@ -1,5 +1,5 @@
 """Launch counters of the kernels and of their plain PyTorch versions, and
-the work counters of K1's limiter and of K3's walks.
+the work counters of the limiter (K1 or K10) and of K3's walks.
 
 Each kernel wrapper adds one to its kernel's count where it launches the
 kernel; each plain version adds one to its own count where it runs.  A run
@@ -13,13 +13,17 @@ The work counters (WORK) are counted on the device, and only inside a
 fused_advect_limit launches K1's counting form, which adds, over its valid
 tracer-level columns, the limiter's clip-and-spread passes, the columns
 and the columns stopped at the cap unconverged into the device's buffer
-(`work_buffer`, WORK_SLOTS rows that K1's blocks add to in turn), and
+(`work_buffer`, WORK_SLOTS rows that K1's blocks add to in turn);
+`ops.limiter`'s row limiter launches K10's counting form, which adds the
+same three numbers over its valid rows into the same buffer (a T subcycle
+runs K1 and a std subcycle K10, so the names mean the same on both); and
 `ops.remap`'s remap_q_ppm_t launches K3's counting form, which adds the
 columns it walked and those it walked again with IEEE divisions into a
 buffer of its own (`work_buffer(device, "remap")`); each plain version
 adds the same numbers by the same rule.  Outside the scope, a profiled run
-included, K1 and K3 run their forms without counting.  `work_snapshot()`
-waits for the device and sums the rows; `work_reset()` zeroes them.
+included, K1, K10 and K3 run their forms without counting.
+`work_snapshot()` waits for the device and sums the rows; `work_reset()`
+zeroes them.
 """
 
 import contextlib
@@ -65,7 +69,8 @@ _counting = 0  # open counting() scopes
 
 @contextlib.contextmanager
 def counting():
-    """Count K1's limiter work and K3's walks (WORK) in the scope."""
+    """Count the limiter's work (K1, K10) and K3's walks (WORK) in the
+    scope."""
     global _counting
     with _lock:
         _counting += 1

@@ -53,6 +53,14 @@
 // final multiply, which the TPU wrapper leaves to XLA, run in the kernel.
 // python -m transport_se_tpu_torch.k10_variants measures the choices.
 //
+// K10 has a counting form (COUNT, launched through its own entry;
+// ops/limiter.py does so inside counters.counting()): over its valid rows
+// it adds the limiter's passes, the rows and the rows stopped at the cap
+// unconverged, summed over the lanes of a warp that reach the count
+// together and added by one atomic a counter into one of `slots` rows of
+// the buffer (the block's index modulo slots), as K1's counting form adds
+// its columns'.  The form without counting carries none of it.
+//
 // Every 16-point sum is the _sum16 pairwise tree and the build has
 // --fmad=false, so the kernel and its plain version agree to the last bit.
 
@@ -121,14 +129,34 @@ __device__ __forceinline__ uint32_t bcast_row(uint32_t r, uint32_t rep,
   return (r / (rep * inner)) * inner + r % inner;
 }
 
-template <typename T>
+// The counting form's tally of a valid row from the one lane that counts
+// it: its passes (conv, or the cap where conv = 0: stopped unconverged),
+// the row, and whether it was capped, summed over the lanes of the warp
+// that arrive together and added by the first of them into row (block
+// index % slots) of counts [slots, 3].
+__device__ __forceinline__ void count_row(unsigned long long* counts,
+                                          int slots, int conv) {
+  const unsigned mask = __activemask();
+  const unsigned passes =
+      __reduce_add_sync(mask, unsigned(conv > 0 ? conv : kMaxIter));
+  const unsigned capped = __popc(__ballot_sync(mask, conv == 0));
+  if (int(threadIdx.x % 32) == __ffs(mask) - 1) {
+    unsigned long long* const row = counts + size_t(blockIdx.x % slots) * 3;
+    atomicAdd(row, (unsigned long long)passes);
+    atomicAdd(row + 1, (unsigned long long)__popc(mask));
+    atomicAdd(row + 2, (unsigned long long)capped);
+  }
+}
+
+template <typename T, bool COUNT>
 __global__ void __launch_bounds__(Shape<T>::threads, Shape<T>::min_blocks)
 limiter_kernel(const T* __restrict__ ptens, const T* __restrict__ sph,
                const T* __restrict__ dpmass, const T* __restrict__ minp,
                const T* __restrict__ maxp, T* __restrict__ out,
                T* __restrict__ minp_out, T* __restrict__ maxp_out,
                uint32_t n, uint32_t sph_rep, uint32_t sph_inner,
-               uint32_t dp_rep, uint32_t dp_inner, T tol_rel) {
+               uint32_t dp_rep, uint32_t dp_inner, T tol_rel,
+               unsigned long long* __restrict__ counts, int slots) {
   constexpr int R = Shape<T>::lanes;
   constexpr int P = kPoints<T>;
   // a row to R adjacent lanes: a quad's lanes leave together
@@ -173,30 +201,36 @@ limiter_kernel(const T* __restrict__ ptens, const T* __restrict__ sph,
     store_pts(out + size_t(row) * 16, t, x0);
     return;
   }
-  limiter_iterate(x, c, mn, mx, tol_rel * fabs(mass), kMaxIter);
+  [[maybe_unused]] const int conv =
+      limiter_iterate(x, c, mn, mx, tol_rel * fabs(mass), kMaxIter);
+  if constexpr (COUNT) {
+    if (t == 0) count_row(counts, slots, conv);
+  }
 #pragma unroll
   for (int i = 0; i < P; ++i) x[i] = x[i] * dp[i];
   store_pts(out + size_t(row) * 16, t, x);
 }
 
-template <typename T>
+// counts: the counting form's int64 [slots, 3] buffer (COUNT), else null
+template <typename T, bool COUNT>
 int launch_limiter(const void* ptens, const void* sph, const void* dpmass,
                    const void* minp, const void* maxp, void* out,
                    void* minp_o, void* maxp_o, long long n,
                    long long sph_rep, long long sph_inner, long long dp_rep,
-                   long long dp_inner, double tol, void* stream) {
+                   long long dp_inner, double tol, void* stream, void* counts,
+                   int slots) {
   constexpr int R = Shape<T>::lanes, threads = Shape<T>::threads;
   if (n <= 0 || n > 0x7fffffffLL / R || sph_rep < 1 || sph_inner < 1 ||
       dp_rep < 1 || dp_inner < 1 || n % (sph_rep * sph_inner) ||
-      n % (dp_rep * dp_inner))
+      n % (dp_rep * dp_inner) || (COUNT && (counts == nullptr || slots <= 0)))
     return int(cudaErrorInvalidValue);
   const long long blocks = (n * R + threads - 1) / threads;
-  limiter_kernel<T><<<unsigned(blocks), threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  limiter_kernel<T, COUNT><<<unsigned(blocks), threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       (const T*)ptens, (const T*)sph, (const T*)dpmass, (const T*)minp,
       (const T*)maxp, (T*)out, (T*)minp_o, (T*)maxp_o, uint32_t(n),
       uint32_t(sph_rep), uint32_t(sph_inner), uint32_t(dp_rep),
-      uint32_t(dp_inner), T(tol));
+      uint32_t(dp_inner), T(tol), (unsigned long long*)counts, slots);
   return int(cudaGetLastError());
 }
 
@@ -205,7 +239,7 @@ template <typename T>
 int limiter_config(int* out) {
   int resident = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &resident, limiter_kernel<T>, Shape<T>::threads, 0);
+      &resident, limiter_kernel<T, false>, Shape<T>::threads, 0);
   if (err != cudaSuccess) return int(err);
   out[0] = Shape<T>::lanes;
   out[1] = Shape<T>::threads;
@@ -221,9 +255,21 @@ int limiter_config(int* out) {
       const void* minp, const void* maxp, void* out, void* minp_o,          \
       void* maxp_o, long long n, long long sph_rep, long long sph_inner,    \
       long long dp_rep, long long dp_inner, double tol, void* stream) {     \
-    return launch_limiter<T>(ptens, sph, dpmass, minp, maxp, out, minp_o,   \
-                             maxp_o, n, sph_rep, sph_inner, dp_rep,         \
-                             dp_inner, tol, stream);                        \
+    return launch_limiter<T, false>(ptens, sph, dpmass, minp, maxp, out,    \
+                                    minp_o, maxp_o, n, sph_rep, sph_inner,  \
+                                    dp_rep, dp_inner, tol, stream, nullptr, \
+                                    0);                                     \
+  }                                                                         \
+  extern "C" int tse_limiter_optim_count_##SUFFIX(                          \
+      const void* ptens, const void* sph, const void* dpmass,               \
+      const void* minp, const void* maxp, void* out, void* minp_o,          \
+      void* maxp_o, long long n, long long sph_rep, long long sph_inner,    \
+      long long dp_rep, long long dp_inner, double tol, void* stream,       \
+      void* counts, int slots) {                                            \
+    return launch_limiter<T, true>(ptens, sph, dpmass, minp, maxp, out,     \
+                                   minp_o, maxp_o, n, sph_rep, sph_inner,   \
+                                   dp_rep, dp_inner, tol, stream, counts,   \
+                                   slots);                                  \
   }                                                                         \
   extern "C" int tse_limiter_config_##SUFFIX(int* out) {                    \
     return limiter_config<T>(out);                                          \

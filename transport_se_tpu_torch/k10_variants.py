@@ -80,9 +80,12 @@ def limiter_usage(log):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"limiter_kernelI([fd])E", m.group(1))
+            # limiter_kernel<T> of older trees, or <T, COUNT>
+            k = re.search(r"limiter_kernelI([fd])(?:Lb([01])E)?E",
+                          m.group(1))
             cur = None if k is None else (
-                "f32" if k.group(1) == "f" else "f64")
+                ("f32" if k.group(1) == "f" else "f64")
+                + ("+count" if k.group(2) == "1" else ""))
         elif cur and "bytes spill stores" in ln:
             spill = ln.split("bytes spill stores")[0].split(",")[-1].strip()
         elif cur and "Used" in ln and "registers" in ln:

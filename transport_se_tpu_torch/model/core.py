@@ -201,24 +201,25 @@ def euler_stage_tens(m: Model, Qdp_n0, qmin, qmax, divdp, divdp_proj, vn0,
     stage's dp offset and bound bookkeeping.  Returns (Qtens, qmin', qmax',
     dp_star): Qtens = Qdp - dt*div(Vstar Qdp) (+ hyperviscosity on stage
     2) and dp_star [E,k,n,n], the limiter's thickness with the
-    UN-projected divdp."""
+    UN-projected divdp.  Its parts open the spans `stage.bounds`,
+    `stage.hypervis` (stage 2) and `stage.advect`."""
     cfg = m.cfg
     tb = m.tables
-    dp = m.dp0col[None, :, None, None] - rhs_multiplier * dt * divdp_proj
-    Q = Qdp_n0 / dp[:, None]                          # [E,q,k,n,n]
-    qmin_l = Q.amin(dim=(-2, -1))                     # [E,q,k]
-    qmax_l = Q.amax(dim=(-2, -1))
+    with span("stage.bounds"):
+        dp = m.dp0col[None, :, None, None] - rhs_multiplier * dt * divdp_proj
+        Q = Qdp_n0 / dp[:, None]                      # [E,q,k,n,n]
+        qmin_l = Q.amin(dim=(-2, -1))                 # [E,q,k]
+        qmax_l = Q.amax(dim=(-2, -1))
+        if rhs_multiplier == 1:
+            qmin = torch.minimum(qmin, qmin_l)
+            qmax = torch.maximum(qmax, qmax_l)
+        else:  # stages 0 and 2: fresh neighbor min/max
+            qmin, qmax = tb.neighbor_minmax(qmin_l, qmax_l, plain=plain)
 
     Qtens_bih = None
-    if rhs_multiplier == 0:
-        qmin, qmax = tb.neighbor_minmax(qmin_l, qmax_l, plain=plain)
-    elif rhs_multiplier == 1:
-        qmin = torch.minimum(qmin, qmin_l)
-        qmax = torch.maximum(qmax, qmax_l)
-    else:  # biharmonic + fresh neighbor min/max
+    if rhs_multiplier == 2 and cfg.nu_q > 0:  # biharmonic
         rhs_viss = 3
-        qmin, qmax = tb.neighbor_minmax(qmin_l, qmax_l, plain=plain)
-        if cfg.nu_q > 0:
+        with span("stage.hypervis"):
             lap1 = so.laplace_sphere_wk(Q, m.deriv, m.Dinv, m.spheremp)
             lap1 = tb.dss_sum(lap1, plain=plain) \
                 * m.rspheremp[:, None, None, :, :]
@@ -227,14 +228,15 @@ def euler_stage_tens(m: Model, Qdp_n0, qmin, qmax, divdp, divdp_proj, vn0,
                          * m.dp0ref[None, None, :, None, None] * lap2
                          / m.spheremp[:, None, None, :, :])
 
-    # advection velocity from the mean flux (euler_step :845-852)
-    Vstar = vn0 / dp[:, :, None]                      # [E,k,2,n,n]
-    gradQ = Vstar[:, None] * Qdp_n0[:, :, :, None]    # [E,q,k,2,n,n]
-    Qtens = Qdp_n0 - dt * so.divergence_sphere(
-        gradQ, m.deriv, m.Dinv, m.metdet, m.rmetdet)
-    if Qtens_bih is not None:
-        Qtens = Qtens + Qtens_bih
-    return Qtens, qmin, qmax, dp - dt * divdp
+    with span("stage.advect"):
+        # advection velocity from the mean flux (euler_step :845-852)
+        Vstar = vn0 / dp[:, :, None]                  # [E,k,2,n,n]
+        gradQ = Vstar[:, None] * Qdp_n0[:, :, :, None]  # [E,q,k,2,n,n]
+        Qtens = Qdp_n0 - dt * so.divergence_sphere(
+            gradQ, m.deriv, m.Dinv, m.metdet, m.rmetdet)
+        if Qtens_bih is not None:
+            Qtens = Qtens + Qtens_bih
+        return Qtens, qmin, qmax, dp - dt * divdp
 
 
 def limiter_args(m: Model, Qtens, dp_star):
@@ -252,21 +254,27 @@ def euler_step(m: Model, Qdp_n0, qmin, qmax, divdp, divdp_proj, vn0,
     (see euler_stage_tens for the arguments).  dssvar: a field DSSed
     along (divdp_proj on stage 0, the eta_dot/omega diagnostics), or None.
     plain: the limiter and the face-mode DSS run their plain versions.
+    The stage opens the span `stage`, and in it `stage.limiter` and
+    `stage.dss` beside euler_stage_tens' spans.
     Returns (Qdp', qmin', qmax', dssvar')."""
-    Qtens, qmin, qmax, dp_star = euler_stage_tens(
-        m, Qdp_n0, qmin, qmax, divdp, divdp_proj, vn0, dt, rhs_multiplier,
-        plain=plain)
-    if m.cfg.limiter_option == 8:
-        ptens, sp_rows, dp_rows = limiter_args(m, Qtens, dp_star)
-        out, qmin, qmax = limiter_optim_stage(ptens, sp_rows, dp_rows, qmin,
-                                              qmax, plain=plain)
-        Qtens = out.reshape(Qtens.shape)
-    # limiter_option 0 and 4: the reference's euler_step applies no
-    # limiter (only option 8 dispatches there, prim_advection_mod.F90:858)
+    with span("stage"):
+        Qtens, qmin, qmax, dp_star = euler_stage_tens(
+            m, Qdp_n0, qmin, qmax, divdp, divdp_proj, vn0, dt,
+            rhs_multiplier, plain=plain)
+        if m.cfg.limiter_option == 8:
+            with span("stage.limiter"):
+                ptens, sp_rows, dp_rows = limiter_args(m, Qtens, dp_star)
+                out, qmin, qmax = limiter_optim_stage(
+                    ptens, sp_rows, dp_rows, qmin, qmax, plain=plain)
+                Qtens = out.reshape(Qtens.shape)
+        # limiter_option 0 and 4: the reference's euler_step applies no
+        # limiter (only option 8 dispatches there, prim_advection_mod.F90:858)
 
-    Qdp_np1 = _dss_scale(m, Qtens, plain)
-    dssvar_out = _dss_scale(m, dssvar, plain) if dssvar is not None else None
-    return Qdp_np1, qmin, qmax, dssvar_out
+        with span("stage.dss"):
+            Qdp_np1 = _dss_scale(m, Qtens, plain)
+            dssvar_out = (_dss_scale(m, dssvar, plain) if dssvar is not None
+                          else None)
+        return Qdp_np1, qmin, qmax, dssvar_out
 
 
 def advect_rk2(m: Model, Qdp, vn0, dt_q, eta_dot=None, omega=None,
@@ -300,23 +308,27 @@ def vertical_remap(m: Model, Qdp, divdp_proj, dt_remap):
     Returns (Qdp', ps_v [E,n,n], dp_ref [E,k,n,n], min_dp): min_dp < 0
     signals a negative layer thickness (reference abort :1323) or, with
     ppm_search="fast", a displacement outside the remap's -2..+2 cell
-    window (ppm_fast_margin)."""
-    dp_star = m.dp0col[None, :, None, None] - dt_remap * divdp_proj
-    ps_v = m.hyai[0] * P0 + dp_star.sum(dim=1)        # [E,n,n]
-    dp_ref = ((m.hyai[1:] - m.hyai[:-1])[None, :, None, None] * P0
-              + (m.hybi[1:] - m.hybi[:-1])[None, :, None, None]
-              * ps_v[:, None])
+    window (ppm_fast_margin).  Its parts open the spans `remap.levels`,
+    `remap.health` and `remap.ppm`."""
     general = m.cfg.ppm_search == "general"
-    d1 = torch.movedim(dp_star, 1, 3)                 # [E,n,n,k]
-    d2 = torch.movedim(dp_ref, 1, 3)
-    health = dp_star.min() if general else torch.minimum(
-        dp_star.min(), ppm_fast_margin(d1, d2))
-    min_dp = m.tables.global_min(health)
-    # column layout for the PPM remap: [..., Q, nlev]
-    Qcol = torch.movedim(Qdp, (1, 2), (3, 4))         # [E,n,n,q,k]
-    remap = remap_q_ppm_general if general else remap_q_ppm
-    Qnew = remap(Qcol, d1, d2, alg=m.cfg.vert_remap_q_alg)
-    Qdp_out = torch.movedim(Qnew, (3, 4), (1, 2)).contiguous()
+    with span("remap.levels"):
+        dp_star = m.dp0col[None, :, None, None] - dt_remap * divdp_proj
+        ps_v = m.hyai[0] * P0 + dp_star.sum(dim=1)    # [E,n,n]
+        dp_ref = ((m.hyai[1:] - m.hyai[:-1])[None, :, None, None] * P0
+                  + (m.hybi[1:] - m.hybi[:-1])[None, :, None, None]
+                  * ps_v[:, None])
+        d1 = torch.movedim(dp_star, 1, 3)             # [E,n,n,k]
+        d2 = torch.movedim(dp_ref, 1, 3)
+    with span("remap.health"):
+        health = dp_star.min() if general else torch.minimum(
+            dp_star.min(), ppm_fast_margin(d1, d2))
+        min_dp = m.tables.global_min(health)
+    with span("remap.ppm"):
+        # column layout for the PPM remap: [..., Q, nlev]
+        Qcol = torch.movedim(Qdp, (1, 2), (3, 4))     # [E,n,n,q,k]
+        remap = remap_q_ppm_general if general else remap_q_ppm
+        Qnew = remap(Qcol, d1, d2, alg=m.cfg.vert_remap_q_alg)
+        Qdp_out = torch.movedim(Qnew, (3, 4), (1, 2)).contiguous()
     return Qdp_out, ps_v, dp_ref, min_dp
 
 
@@ -711,31 +723,38 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
                 "limiter_option=8, diagnostics off)")
 
         def step(Qdp, nstep: int):
+            # the T subcycle's spans: `subcycle` > 3 `tracer_step` >
+            # (`wind`, 3 `stage`, and outside both the step's divergence
+            # and time average), then `remap`
             Qdp = _take(Qdp)
             with span("subcycle"):
                 divdp_proj = None
                 for _ in range(cfg.rsplit):
-                    t_wind = t_wind_of(nstep)
-                    v = dcmip.winds(cfg.test_case, m.lon, m.lat, m.etam,
-                                    t_wind)
-                    vn0 = v * m.dp0col[None, :, None, None, None]
-                    if cfg.qsplit != 1:
-                        vn0 = vn0 * ur_w[nstep % cfg.qsplit]
-                    eta = omg = None
-                    if diagnostics:
-                        eta = dcmip.eta_dot_dpdn(
-                            cfg.test_case, m.lon, m.lat, m.etai,
-                            t_wind)[:, :cfg.nlev]
-                        # omega_p = (-g rho w)/p at midpoints
-                        # (dcmip_wrapper:253,197)
-                        omg = dcmip.eta_dot_dpdn(cfg.test_case, m.lon, m.lat,
-                                                 m.etam, t_wind) \
-                            / (P0 * m.etam[None, :, None, None])
-                    Qdp, divdp_proj, _, _ = advect_rk2(m, Qdp, vn0, dt_q,
-                                                       eta, omg, plain=plain)
+                    with span("tracer_step"):
+                        with span("wind"):
+                            t_wind = t_wind_of(nstep)
+                            v = dcmip.winds(cfg.test_case, m.lon, m.lat,
+                                            m.etam, t_wind)
+                            vn0 = v * m.dp0col[None, :, None, None, None]
+                            if cfg.qsplit != 1:
+                                vn0 = vn0 * ur_w[nstep % cfg.qsplit]
+                            eta = omg = None
+                            if diagnostics:
+                                eta = dcmip.eta_dot_dpdn(
+                                    cfg.test_case, m.lon, m.lat, m.etai,
+                                    t_wind)[:, :cfg.nlev]
+                                # omega_p = (-g rho w)/p at midpoints
+                                # (dcmip_wrapper:253,197)
+                                omg = dcmip.eta_dot_dpdn(
+                                    cfg.test_case, m.lon, m.lat, m.etam,
+                                    t_wind) / (P0 * m.etam[None, :, None,
+                                                           None])
+                        Qdp, divdp_proj, _, _ = advect_rk2(
+                            m, Qdp, vn0, dt_q, eta, omg, plain=plain)
                     nstep = nstep + 1
-                Qdp, ps_v, _, min_dp = vertical_remap(m, Qdp, divdp_proj,
-                                                      dt_remap)
+                with span("remap"):
+                    Qdp, ps_v, _, min_dp = vertical_remap(
+                        m, Qdp, divdp_proj, dt_remap)
                 return Qdp, ps_v, nstep, min_dp
 
         return step

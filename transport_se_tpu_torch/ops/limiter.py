@@ -21,9 +21,12 @@ The kernel is `csrc/limiter.cu`; it runs the clip-and-redistribute body of
 `csrc/common.cuh` that K1 runs too.  The plain version below runs that
 body's plain version, `ops.euler.limiter_iterate_plain`, which K1's plain
 version runs as well: every 16-point sum is the `_sum16` pairwise tree, so
-kernel and plain version agree to the last bit.  K10 does not count the
-limiter's passes (K1 does, inside `counters.counting()`: `counters.WORK`);
-it ignores the body's returned pass.
+kernel and plain version agree to the last bit.  Inside
+`counters.counting()` the wrapper launches K10's counting form, which adds
+the limiter's passes, rows and capped rows over the valid rows into
+`counters.work_buffer` (the `limiter` group, which K1 adds to on the T
+path; a subcycle runs one of the two), and the plain version adds the same
+numbers; outside it K10 runs its form without counting.
 
 `limiter_optim_stage` is the std-layout euler stage's call: its weights
 spheremp [E, 16] and thickness dp_star [E, k, 16] are shared by the rows of
@@ -44,10 +47,10 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, counters
 from ..counters import bump
-from .euler import (TOL_LIMITER, _DTYPES, _check, _device_kind, _stream,
-                    limiter_iterate_plain)
+from .euler import (MAX_ITER, TOL_LIMITER, _DTYPES, _check, _device_kind,
+                    _stream, limiter_counts, limiter_iterate_plain)
 
 N2 = 16
 
@@ -56,8 +59,13 @@ def limiter_optim_iter_full_plain(ptens, sphweights, minp, maxp, dpmass):
     """Plain PyTorch version of limiter 8; see limiter_optim_iter_full.
     sphweights and dpmass may be any shapes that broadcast to ptens'."""
     bump("limiter_optim_plain")
-    x, minp, maxp, valid = limiter_iterate_plain(
-        ptens / dpmass, sphweights * dpmass, minp, maxp)
+    count = counters.counting_on()
+    x, minp, maxp, valid, *conv = limiter_iterate_plain(
+        ptens / dpmass, sphweights * dpmass, minp, maxp, count=count)
+    if count:
+        # valid has the weights' shape, which may broadcast over rows
+        counters.work_add(x.device, limiter_counts(
+            conv[0], valid.expand(conv[0].shape), MAX_ITER))
     out = torch.where(valid[..., None], x * dpmass, ptens)
     return out, minp, maxp
 
@@ -65,7 +73,8 @@ def limiter_optim_iter_full_plain(ptens, sphweights, minp, maxp, dpmass):
 def _launch(ptens, sphweights, dpmass, minp, maxp, sph_rep, sph_inner,
             dp_rep, dp_inner):
     """K10 on the rows of ptens; the weight/thickness row of ptens row r is
-    (r // (rep*inner))*inner + r % inner (csrc/limiter.cu bcast_row)."""
+    (r // (rep*inner))*inner + r % inner (csrc/limiter.cu bcast_row).
+    Inside counters.counting() it launches the counting form."""
     n = ptens.numel() // N2
     if n == 0:
         raise ValueError("limiter_optim: no rows")
@@ -77,11 +86,17 @@ def _launch(ptens, sphweights, dpmass, minp, maxp, sph_rep, sph_inner,
     out = torch.empty_like(ptens)
     minp_o = torch.empty_like(minp)
     maxp_o = torch.empty_like(maxp)
-    fn = _build.entry("tse_limiter_optim", _DTYPES[ptens.dtype])
+    count = ()
+    name = "tse_limiter_optim"
+    if counters.counting_on():
+        count = (counters.work_buffer(ptens.device).data_ptr(),
+                 counters.WORK_SLOTS)
+        name = "tse_limiter_optim_count"
+    fn = _build.entry(name, _DTYPES[ptens.dtype])
     code = fn(ptens.data_ptr(), sphweights.data_ptr(), dpmass.data_ptr(),
               minp.data_ptr(), maxp.data_ptr(), out.data_ptr(),
               minp_o.data_ptr(), maxp_o.data_ptr(), n, sph_rep, sph_inner,
-              dp_rep, dp_inner, TOL_LIMITER, _stream(ptens.device))
+              dp_rep, dp_inner, TOL_LIMITER, _stream(ptens.device), *count)
     _build.check(code, "limiter_optim")
     bump("limiter_optim")
     return out, minp_o, maxp_o
