@@ -21,9 +21,10 @@ the result lines):
      plain version and the chain it replaced, with its registers and
      launch shape;
      K1 bitwise at each stage kind, and its times at limiter iteration
-     caps 1, 2, 4 and 15; K3 bitwise at alg 0 and 2 at 35 tracers and at
-     the f64 cell's tracer-group widths, 9 and 8 (the state's first lanes),
-     each width timed beside its bound with its tile form, with its
+     caps 1, 2, 4 and 15; K3 bitwise at alg 0 and 2 at 35 tracers, at
+     the f64 cell's tracer-group widths, 9 and 8, and at the std cell's 4
+     (the state's first lanes), each width timed beside its bound with
+     its tile form, with its
      registers, shared memory, resident blocks and walking warps per SM;
      K5 bitwise on the sphere
      and on every shard of S = 8, with its registers and spills, launch
@@ -48,15 +49,19 @@ the result lines):
      histogram of iteration passes per row; K10's counting form on them
      bitwise with the plain version's counts: passes a row, capped share
   9. one NE8 f64 std-layout subcycle in gather and in segsum mode, kernels
-     against plain versions; segsum twice, bitwise
+     against plain versions, K10, K3 and the health kernel counted under
+     their own names and under the plain ones; segsum twice, bitwise
  10. the CLI (python -m transport_se_tpu_torch.main, one subprocess per
      run) on the published f64 verification runs NE8 DCMIP 1-2 (1 day),
      NE30 DCMIP 1-2 (1 day) and NE8 DCMIP 1-1 (12 days): error norms
-     against the published digits, mass drift, K10 launches
+     against the published digits, mass drift, K10 launches, K3 and
+     health kernel launches (one a subcycle)
  11. exact restart through the CLI at NE8: 3 steps + restart + 3 steps
      gives the 6-step run's last history record bitwise
  12. three steady-state NE30 f64 std-layout subcycles (the NE30 CLI run's
-     configuration) timed with CUDA events
+     configuration) timed with CUDA events; K3 and the health kernel on
+     the first subcycle's remap inputs bitwise against their plain
+     versions, each timed beside its bound
  13. the banded face DSS K7 against its plain version at NE30 shapes, f32
      and f64, in its four variants, on every shard of 6 (row-aligned
      chunks) and of 8 (chunks cut rows), bit for bit; its raw and scale
@@ -69,7 +74,7 @@ the result lines):
      composition, against the single-device face subcycle: launch counts
      per shard, min_dp, tracer mass, time per subcycle
  15. the std-layout sharded subcycle, NE8 f64 DCMIP 1-1, 8 shards against
-     one device
+     one device; K10, K3 and the health kernel counted a shard
  16. the f32 verification of the production path: python -m
      transport_se_tpu_torch.verify (in-process) on NE8 DCMIP 1-1, 12 days,
      f32 --pallas (the T path through K1 and K3-K6), its L1, L2 and Linf
@@ -1053,10 +1058,10 @@ def main():
                  lambda: remap.remap_q_ppm_t(Qt, dps, dpr, alg=alg),
                  lambda: remap.remap_q_ppm_t_plain(Qt, dps, dpr, alg=alg),
                  "remap_q_ppm_t", (2 * F + 2 * lv) * es, F * OPS["ppm"])
-        # and at the f64 cell's tracer-group widths, on the state's first
-        # n*nk lanes: the streamed tiles in f64, whole columns in f32, each
-        # timed under its own key
-        for n in (9, 8):
+        # and at the f64 cell's tracer-group widths and the std cell's 4
+        # tracers, on the state's first n*nk lanes (each dtype's tile form
+        # at that width), each timed under its own key
+        for n in (9, 8, 4):
             Qn = Qt[..., :n * nk].contiguous()
             Fn = E * 16 * n * nk
             key = (f"remap_q_ppm_t nq{n} "
@@ -1073,15 +1078,16 @@ def main():
         check(all(a == 0.0 for e in k3.values() for a, _ in e),
               f"{dtype} K3 is not bitwise equal to its plain version: {k3}")
         # K3's launch shape: registers and spills (ptxas, whole-column and
-        # streamed forms), then at 35, 9 and 8 tracers (the f32 cells, the
-        # f64 cell's tracer groups) its form, rows a tile, shared memory
+        # streamed forms), then at 35, 9, 8 and 4 tracers (the f32 cells,
+        # the f64 cell's tracer groups, the std cell) its form, rows a tile,
+        # shared memory
         # and resident blocks per SM (the occupancy API) and the walking
         # threads an SM, in warps
         regs = [u for u in ptxas_usage(_build.BUILD_DIR / "build.log")
                 if u.startswith(f"ppm_kernel<{dtype}")
                 and "count" not in u]
         shapes = []
-        for n in (35, 9, 8):
+        for n in (35, 9, 8, 4):
             sh = remap.kernel_config(n, nk, Qt.dtype)
             shapes.append(
                 f"nq {n}: {sh['form']}"
@@ -1631,12 +1637,21 @@ def main():
         o_k, _, n8, md_k = make_subcycle_fn(m8)(Q8, 0)
         torch.cuda.synchronize()
         kc = counters.snapshot()
+        counters.reset()
         o_p = make_subcycle_fn(m8, plain=True)(Q8, 0)[0]
         pc = {k: v for k, v in counters.snapshot().items() if v}
         a8, r8 = rel_err(torch, o_k, o_p)
-        check(kc["limiter_optim"] == K10_PER_STEP * n8
-              and kc["limiter_optim_plain"] == 0,
-              f"NE8 std {mode}: launches {kc}")
+        # K10 on each stage, the remap's K3 and health kernel once a
+        # subcycle; the plain run the same counts under the plain names
+        want8 = {"limiter_optim": K10_PER_STEP * n8, "remap_q_ppm_t": 1,
+                 "remap_health_t": 1}
+        check(all(kc[k] == n and kc[k + "_plain"] == 0
+                  for k, n in want8.items()),
+              f"NE8 std {mode}: launches {kc}, want {want8}")
+        check(all(pc.get(k + "_plain") == n and not pc.get(k)
+                  for k, n in want8.items()),
+              f"NE8 std {mode}: plain run launches {pc}, want {want8} "
+              "under the plain names")
         check(r8 <= TOL["f64"],
               f"NE8 f64 std {mode} subcycle kernels vs plain rel {r8:.3e}")
         check(bool(torch.isfinite(o_k).all()), f"NE8 std {mode}: non-finite")
@@ -1686,9 +1701,13 @@ def main():
             launched = dict((k, int(v)) for k, v in (
                 item.rsplit(" ", 1) for item in lines.group(1).split(", ")))
             check(launched.get("limiter_optim") == K10_PER_STEP * nsteps
+                  and launched.get("remap_q_ppm_t") == nsteps // 3
+                  and launched.get("remap_health_t") == nsteps // 3
                   and not any(k.endswith("_plain") for k in launched),
                   f"CLI {test} NE{ne}: launches {launched}, want "
-                  f"limiter_optim {K10_PER_STEP * nsteps} and no plain")
+                  f"limiter_optim {K10_PER_STEP * nsteps}, remap_q_ppm_t "
+                  f"and remap_health_t {nsteps // 3} (one a subcycle of "
+                  "rsplit 3) and no plain")
             check(drift < DRIFT_TOL, f"CLI {test} NE{ne}: mass drift "
                   f"{drift:.3e} >= {DRIFT_TOL:.0e}")
             nrm = history_norms(str(d / "movies" / f"{test}1.nc"), test, ne)
@@ -1765,8 +1784,57 @@ def main():
     # ---- 12. steady-state NE30 f64 std-layout subcycle -------------------
     m12 = build_model(dcmip12_ne30(), dev)
     step = make_subcycle_fn(m12)
-    Qdp, _, nstep, _ = step(initial_qdp(m12), 0)
+    # the first subcycle hands its remap's inputs to the recorders: K3's
+    # lanes (4 tracers x 72 levels) and both fields of widths
+    seen = {}
+    levels_t, lanes_t = core.remap_levels_t, core.remap_lanes_t
+
+    def levels_rec(mm, proj, dt, plain=False):
+        out = levels_t(mm, proj, dt, plain=plain)
+        seen.update(dps=out[0], dpr=out[1], min_dp=out[3])
+        return out
+
+    def lanes_rec(mm, Qt, dps, dpr, plain=False):
+        seen["Qt"] = Qt.clone()
+        return lanes_t(mm, Qt, dps, dpr, plain=plain)
+    core.remap_levels_t, core.remap_lanes_t = levels_rec, lanes_rec
+    try:
+        Qdp, _, nstep, _ = step(initial_qdp(m12), 0)
+    finally:
+        core.remap_levels_t, core.remap_lanes_t = levels_t, lanes_t
     torch.cuda.synchronize()
+    # K3 and the health kernel on them against their plain versions, bit
+    # for bit, each timed beside its bound
+    Qt12, dps12, dpr12 = seen["Qt"], seen["dps"], seen["dpr"]
+    alg12, es12 = m12.cfg.vert_remap_q_alg, Qt12.element_size()
+    F12, lv12 = Qt12.numel(), dps12.numel()
+    sh12 = remap.kernel_config(m12.cfg.qsize, m12.cfg.nlev, Qt12.dtype)
+    std_k = {
+        "K3": (lambda: remap.remap_q_ppm_t(Qt12, dps12, dpr12, alg=alg12),
+               lambda: remap.remap_q_ppm_t_plain(Qt12, dps12, dpr12,
+                                                 alg=alg12),
+               (2 * F12 + 2 * lv12) * es12, F12 * OPS["ppm"]),
+        "health": (lambda: remap.remap_health_t(dps12, dpr12),
+                   lambda: remap.remap_health_t_plain(dps12, dpr12),
+                   2 * lv12 * es12, lv12 * OPS["health"])}
+    std_line = []
+    for name, (kern, plain, nbytes, nops) in std_k.items():
+        got, want = kern(), plain()
+        check(torch.equal(bits(torch, got), bits(torch, want)),
+              f"phase 12: {name} on the std NE30 f64 DCMIP 1-2 remap "
+              "inputs is not bitwise equal to its plain version")
+        t_k, t_p = timed(torch, kern), timed(torch, plain)
+        b = bound(nbytes, nops, "f64")[0]
+        std_line.append(f"{name} bitwise, {t_k:.4f} ms against its bound "
+                        f"{b:.4f} ({b / t_k:.1%}), plain {t_p:.3f} ms")
+        if name == "health":
+            # in the cell window, and the subcycle's min_dp is this value
+            check(float(got) > 0 and float(got) == float(seen["min_dp"]),
+                  f"phase 12: health value {float(got)!r}, the subcycle's "
+                  f"min_dp {float(seen['min_dp'])!r}")
+            std_line[-1] += f", value {float(got):.9g}"
+        del got, want
+    del seen, Qt12, dps12, dpr12, std_k
     per = []
     t0 = time.perf_counter()
     for _ in range(3):
@@ -1783,7 +1851,10 @@ def main():
     say(f"phase 12 NE30 f64 std DCMIP 1-2 steady state: 3 subcycles, per "
         f"subcycle (CUDA events) median {statistics.median(sub_ms):.2f} ms, "
         f"min {min(sub_ms):.2f}, max {max(sub_ms):.2f}; host wall "
-        f"{wall / 3 * 1e3:.2f} ms/subcycle on {card}")
+        f"{wall / 3 * 1e3:.2f} ms/subcycle on {card}; the first subcycle's "
+        f"remap inputs ({m12.cfg.qsize} tracers x {m12.cfg.nlev} levels, K3 "
+        f"{sh12['form']}, {sh12['rows']} rows, {sh12['threads']} threads): "
+        + "; ".join(std_line))
     del m12, Qdp
     torch.cuda.empty_cache()
 
@@ -2056,7 +2127,10 @@ def main():
           f"single (scale {scale:.3e})")
     check(abs(float(md15) - float(ref[3])) < 1e-9, "std sharded min_dp")
     check(c15["limiter_optim"] == 8 * K10_PER_STEP * n15
-          and c15["dss_band"] == 0, f"std sharded launches {c15}")
+          and c15["remap_q_ppm_t"] == c15["remap_health_t"] == 8
+          and c15["dss_band"] == 0
+          and not any(v for k, v in c15.items() if k.endswith("_plain")),
+          f"std sharded launches {c15}")
     say(f"phase 15 NE8 f64 std-layout sharded subcycle, 8 shards as "
         f"threads, gather DSS: max abs {d15:.3e} from the single-device "
         f"subcycle (bound 1e-13 x {scale:.3e}); min_dp {float(md15):.6g}; "
@@ -2260,7 +2334,8 @@ def main():
     torch.cuda.synchronize()
     ce = {k: v for k, v in counters.snapshot().items() if v}
     check(n1 == 3 and float(md) > 0 and bool(torch.isfinite(q1).all())
-          and ce == {"limiter_optim": 3 * K10_PER_STEP},
+          and ce == {"limiter_optim": 3 * K10_PER_STEP, "remap_q_ppm_t": 1,
+                     "remap_health_t": 1},
           f"entry step: nstep {n1}, min_dp {float(md)}, launches {ce}")
     say(f"phase 19 {buf.getvalue().strip()}; launches face "
         + ", ".join(f"{k} {v}" for k, v in dr["face"]["launches"].items())

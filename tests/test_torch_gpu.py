@@ -284,6 +284,7 @@ K3_CASES = {
     "nq9_partial_tile": (None, 9, 72, "partial"),
     "persistent_ragged": (None, 9, 72, "ragged"),
     "top_rewalk_nq9": (2, 9, 72, "top"),
+    "ne30_nq4_nk72": (5400, 4, 72, None),
 }
 
 
@@ -405,7 +406,8 @@ def test_k3_counting_form_bitwise_and_counts_plain(cuda, dtype, case):
 
 # the health kernel's cases, each (E, nlev, case): one element (16
 # columns, a partial tile of 64); 80 columns (a full tile and a partial
-# one); NE30's 86,400 columns (blocks walk many tiles); 4 and 64 levels;
+# one); NE30's 86,400 columns (blocks walk many tiles), also with widths
+# inside the cell window (the std cell's remap); 4 and 64 levels;
 # 5 levels (rows that are no multiple of 16 bytes: single-value staging);
 # a field that is not 16-byte aligned; a negative width, a NaN width and
 # interfaces displaced out of the cell window
@@ -413,6 +415,7 @@ HEALTH_CASES = {
     "e1_nk72": (1, 72, None),
     "e5_nk72": (5, 72, None),
     "ne30_nk72": (5400, 72, "big"),
+    "ne30_window_nk72": (5400, 72, None),
     "nk4": (3, 4, None),
     "nk5": (3, 5, None),
     "nk64": (7, 64, None),
@@ -632,26 +635,50 @@ def test_k10_matches_plain(cuda, dtype):
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 @pytest.mark.parametrize("dss_mode", ["gather", "segsum", "face"])
 def test_std_subcycle_kernels_match_plain_and_count(cuda, dtype, dss_mode):
-    """The std-layout step launches K10 on each of its 9 stages (and, in
-    face mode, K4/K6), no plain version; plain=True the reverse."""
+    """The std-layout step launches K10 on each of its 9 stages, K3 and the
+    health kernel once (and, in face mode, K4/K6), no plain version;
+    plain=True the reverse."""
     m = _model(dtype, cuda, dss_mode, use_pallas=False)
     Q0 = initial_qdp(m)
     counters.reset()
     got = make_subcycle_fn(m)(Q0, 0)[0]
     counts = counters.snapshot()
     want_k = {"limiter_optim": 9, "fused_advect_limit": 0,
-              "remap_q_ppm_t": 0, "remap_health_t": 0}
+              "remap_q_ppm_t": 1, "remap_health_t": 1}
     if dss_mode == "face":
         want_k.update(dss_face=15, neighbor_minmax=6)
     assert _named(counts, want_k) == {
         **want_k, **{k + "_plain": 0 for k in want_k}}
     counters.reset()
     want = make_subcycle_fn(m, plain=True)(Q0, 0)[0]
-    assert counters.COUNTS["limiter_optim"] == 0
-    assert counters.COUNTS["limiter_optim_plain"] == 9
+    for k in ("limiter_optim", "remap_q_ppm_t", "remap_health_t"):
+        assert counters.COUNTS[k] == 0
+        assert counters.COUNTS[k + "_plain"] == want_k[k]
     _close(got, want)
     if dss_mode == "segsum":
         assert torch.equal(make_subcycle_fn(m)(Q0, 0)[0], got)
+
+
+def test_std_ne30_dcmip12_f64_subcycle_bitwise_to_plain(cuda):
+    """One subcycle of the published NE30 DCMIP 1-2 run in f64 on the std
+    path (the benchmark's ne30_dcmip12_f64: gather DSS on the gilbert
+    order, 15 limiter passes, 4 tracers) with K10, K3 and the health
+    kernel == the same subcycle with their plain versions, bit for bit."""
+    cfg = Config(ne=30, nlev=72, qsize=4, tstep=300.0, vcoord="acme72",
+                 test_case="dcmip1-2", nu_q=1e15, dtype="f64",
+                 use_pallas=False, dss_mode="gather", elem_order="gilbert")
+    m = build_model(cfg, cuda)
+    Q0 = initial_qdp(m)
+    want_k = {"limiter_optim": 9, "remap_q_ppm_t": 1, "remap_health_t": 1}
+    counters.reset()
+    got = make_subcycle_fn(m)(Q0, 0)
+    assert _named(counters.snapshot(), want_k) == {
+        **want_k, **{k + "_plain": 0 for k in want_k}}
+    want = make_subcycle_fn(m, plain=True)(Q0, 0)
+    assert got[2] == want[2] == cfg.rsplit
+    for a, b in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        assert torch.equal(_bits(a), _bits(b))
+    assert got[3].item() > 0 and bool(torch.isfinite(got[0]).all())
 
 
 def test_std_run_diagnostics_on_card(cuda):

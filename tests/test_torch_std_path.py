@@ -2,7 +2,9 @@
 ne=2, 16 levels, 2 tracers: the DCMIP fields, the vorticity, the general
 PPM remap, the std DSS in its three modes, repro_sum, the diagnostics, one
 subcycle in each of its options, the dispatch between the two pipelines,
-and run_simulation with its StateLog and restart.
+and run_simulation with its StateLog and restart.  The std remap (the T
+layout's K3 and health kernel on T-layout copies) is held both against
+the JAX package's and against the plain-torch std remap it replaced.
 
 Tolerances, each with its reason:
 * bitwise where both sides do the same operations in the same order: the
@@ -143,6 +145,97 @@ def test_remap_q_ppm_general_matches_jax():
                                        alg=alg).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-13)
         np.testing.assert_allclose(got.sum(-1), qdp.sum(-1), rtol=1e-12)
+
+
+def _former_vertical_remap(m, Qdp, divdp_proj, dt_remap):
+    """The std remap as the std path ran it before it took the T layout's:
+    the plain-torch PPM on the movedim columns [E,n,n,q,k], the health
+    value dp_star.min() (and ppm_fast_margin with the fast search).
+    Returns (Qdp', ps_v, dp_star, min_dp)."""
+    general = m.cfg.ppm_search == "general"
+    dp_star = m.dp0col[None, :, None, None] - dt_remap * divdp_proj
+    ps_v = m.hyai[0] * 1e5 + dp_star.sum(dim=1)
+    dp_ref = ((m.hyai[1:] - m.hyai[:-1])[None, :, None, None] * 1e5
+              + (m.hybi[1:] - m.hybi[:-1])[None, :, None, None]
+              * ps_v[:, None])
+    d1 = torch.movedim(dp_star, 1, 3)
+    d2 = torch.movedim(dp_ref, 1, 3)
+    health = dp_star.min() if general else torch.minimum(
+        dp_star.min(), tppm.ppm_fast_margin(d1, d2))
+    remap = tppm.remap_q_ppm_general if general else tppm.remap_q_ppm
+    Qnew = remap(torch.movedim(Qdp, (1, 2), (3, 4)), d1, d2,
+                 alg=m.cfg.vert_remap_q_alg)
+    return (torch.movedim(Qnew, (3, 4), (1, 2)), ps_v, dp_star,
+            m.tables.global_min(health))
+
+
+@pytest.mark.parametrize("search", ["fast", "general"])
+@pytest.mark.parametrize("alg", [0, 2])
+@pytest.mark.parametrize("case", ["dcmip1-1", "dcmip1-2"])
+def test_std_remap_matches_its_former_formulation(models, case, alg,
+                                                  search):
+    """The std vertical_remap (the T remap on T-layout copies) == the
+    plain-torch std remap it replaced, on the state and widths of a tracer
+    step: Qdp to 1e-13 of its largest value (another association of the
+    PPM's sums), ps_v and min_dp to a few ulp of the column's pressure
+    (level sums in another order), each column's mass conserved."""
+    _, tm = models
+    m = dataclasses.replace(tm, cfg=dataclasses.replace(
+        CFG, test_case=case, vert_remap_q_alg=alg, ppm_search=search))
+    vn0 = tdcmip.winds(case, m.lon, m.lat, m.etam, torch.tensor(
+        2 * CFG.tstep, dtype=torch.float64)) * m.dp0col[
+            None, :, None, None, None]
+    Qdp, divdp_proj, _, _ = tcore.advect_rk2(m, tcore.initial_qdp(m), vn0,
+                                             CFG.dt_tracer)
+    want, ps_want, dp_star, min_want = _former_vertical_remap(
+        m, Qdp, divdp_proj, CFG.dt_remap)
+    counters.reset()
+    got, ps_got, min_got = tcore.vertical_remap(m, Qdp, divdp_proj,
+                                                CFG.dt_remap)
+    c = counters.snapshot()
+    assert c["remap_q_ppm_t_plain"] == (search == "fast")
+    assert c["remap_health_t_plain"] == (search == "fast")
+    assert got.shape == Qdp.shape and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-13 * want.abs().max().item())
+    pulp = 8 * EPS * ps_want.abs().max().item()
+    np.testing.assert_allclose(ps_got.numpy(), ps_want.numpy(), rtol=0,
+                               atol=pulp)
+    assert abs(min_got.item() - min_want.item()) <= pulp
+    assert 0 < min_got.item() <= dp_star.min().item()
+    # each (element, tracer, point) column's mass
+    np.testing.assert_allclose(got.sum(2).numpy(), Qdp.sum(2).numpy(),
+                               rtol=0, atol=1e-13 * Qdp.sum(2).abs().max()
+                               .item())
+
+
+@pytest.mark.parametrize("search", ["fast", "general"])
+@pytest.mark.parametrize("alg", [0, 2])
+@pytest.mark.parametrize("case", ["dcmip1-1", "dcmip1-2"])
+def test_std_remap_matches_jax(models, case, alg, search):
+    """The std vertical_remap == the JAX package's vertical_remap on the
+    same state and widths of a tracer step: Qdp to 1e-13 of its largest
+    value (XLA and PyTorch associate the PPM's sums differently), ps_v and
+    min_dp to a few ulp of the column's pressure."""
+    jm, tm = models
+    cfg = dict(test_case=case, vert_remap_q_alg=alg, ppm_search=search)
+    m = dataclasses.replace(tm, cfg=dataclasses.replace(CFG, **cfg))
+    jmc = dataclasses.replace(jm, cfg=dataclasses.replace(JCFG, **cfg))
+    vn0 = tdcmip.winds(case, m.lon, m.lat, m.etam, torch.tensor(
+        2 * CFG.tstep, dtype=torch.float64)) * m.dp0col[
+            None, :, None, None, None]
+    Qdp, divdp_proj, _, _ = tcore.advect_rk2(m, tcore.initial_qdp(m), vn0,
+                                             CFG.dt_tracer)
+    want, ps_want, _, min_want = (np.asarray(a) for a in jcore.vertical_remap(
+        jmc, jnp.asarray(Qdp.numpy()), jnp.asarray(divdp_proj.numpy()),
+        CFG.dt_remap))
+    got, ps_got, min_got = tcore.vertical_remap(m, Qdp, divdp_proj,
+                                                CFG.dt_remap)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-13 * np.abs(want).max())
+    pulp = 8 * EPS * np.abs(ps_want).max()
+    np.testing.assert_allclose(ps_got.numpy(), ps_want, rtol=0, atol=pulp)
+    assert abs(min_got.item() - float(min_want)) <= pulp
 
 
 def test_std_dss_gather_bitwise(models):
@@ -338,12 +431,14 @@ def test_dispatch_follows_use_pallas(models, use_pallas, limiter,
     out = tcore.make_subcycle_fn(m, diagnostics=diagnostics)(Q0, 0)[0]
     c = counters.snapshot()
     assert out.shape == Q0.shape
+    # both pipelines remap through K3 (and its health kernel); they differ
+    # in the stages: K1 on the T path, K10 (limiter 8) on the std path
+    assert c["remap_q_ppm_t_plain"] == 1 and c["remap_health_t_plain"] == 1
     if path == "t":
         assert c["fused_advect_limit_plain"] == 9 and c[
-            "remap_q_ppm_t_plain"] == 1 and c["limiter_optim_plain"] == 0
+            "limiter_optim_plain"] == 0
     else:
-        assert c["fused_advect_limit_plain"] == 0 and c[
-            "remap_q_ppm_t_plain"] == 0
+        assert c["fused_advect_limit_plain"] == 0
         assert c["limiter_optim_plain"] == (9 if limiter == 8 else 0)
     if path == "std":
         with pytest.raises(ValueError, match="T-layout"):

@@ -15,10 +15,12 @@ Two pipelines, chosen as the JAX package chooses them
 
 * std layout (`euler_step`, `advect_rk2`, `vertical_remap`): the state is
   Qdp [E, q, k, 4, 4]; the operators are plain PyTorch tensor code, the
-  winds are evaluated directly, and limiter 8 runs the row limiter K10
-  (`ops/limiter.py`).  This is the f64 verification path of the `Config`
-  defaults (use_pallas=False), with any DSS mode, limiter 0/4/8,
-  diagnostics (the eta_dot/omega piggyback DSS) and either PPM search.
+  winds are evaluated directly, limiter 8 runs the row limiter K10
+  (`ops/limiter.py`), and the remap is the T layout's (K3 and its health
+  kernel) on a T-layout copy of Qdp.  This is the f64 verification path
+  of the `Config` defaults (use_pallas=False), with any DSS mode, limiter
+  0/4/8, diagnostics (the eta_dot/omega piggyback DSS) and either PPM
+  search.
 * T layout (`euler_step_t`, `advect_rk2_t_parts`, `remap_levels_t`,
   `remap_lanes_t`),
   for use_pallas=True with limiter 8 and no diagnostics: the state is
@@ -61,7 +63,7 @@ from ..ops.euler import (MAX_ITER, fused_advect_limit,
                          laplace_wk_t_plain)
 from ..ops.lanes import lane_gather, lane_scatter
 from ..ops.limiter import limiter_optim_stage
-from ..ops.ppm import ppm_fast_margin, remap_q_ppm, remap_q_ppm_general
+from ..ops.ppm import remap_q_ppm_general
 from ..ops.remap import (remap_health_t, remap_health_t_plain, remap_q_ppm_t,
                          remap_q_ppm_t_plain)
 from ..timing import span
@@ -301,35 +303,33 @@ def advect_rk2(m: Model, Qdp, vn0, dt_q, eta_dot=None, omega=None,
     return (Qdp + 2.0 * Qdp3) / 3.0, divdp_proj, eta_out, omega_out
 
 
-def vertical_remap(m: Model, Qdp, divdp_proj, dt_remap):
+def vertical_remap(m: Model, Qdp, divdp_proj, dt_remap, plain=False):
     """Remap Qdp [E,q,k,n,n] from the Lagrangian levels to the reference
-    hybrid levels (prim_advection_mod.F90:1242-1330).
+    hybrid levels (prim_advection_mod.F90:1242-1330), through the T
+    layout's remap: remap_levels_t (the health kernel) and remap_lanes_t
+    (K3, or the general search), each handed a contiguous [E,16,...] copy
+    of its std-layout input.  Qdp may be handed over as a one-element list
+    (_take), freed once copied.  plain: the kernels' plain versions.
 
-    Returns (Qdp', ps_v [E,n,n], dp_ref [E,k,n,n], min_dp): min_dp < 0
-    signals a negative layer thickness (reference abort :1323) or, with
-    ppm_search="fast", a displacement outside the remap's -2..+2 cell
-    window (ppm_fast_margin).  Its parts open the spans `remap.levels`,
-    `remap.health` and `remap.ppm`."""
-    general = m.cfg.ppm_search == "general"
+    Returns (Qdp', ps_v [E,n,n], min_dp): min_dp < 0 signals a negative
+    layer thickness (reference abort :1323) or, with ppm_search="fast", a
+    displacement outside the remap's -2..+2 cell window.  The layout
+    copies open spans of the T remap's names, so that every operator lies
+    in `remap.levels`, `remap.health` or `remap.ppm`: `remap.levels`
+    before remap_levels_t's own, and `remap.ppm` around remap_lanes_t's."""
+    Qdp = _take(Qdp)
+    shape = Qdp.shape
+    E, nq, nk = shape[:3]
     with span("remap.levels"):
-        dp_star = m.dp0col[None, :, None, None] - dt_remap * divdp_proj
-        ps_v = m.hyai[0] * P0 + dp_star.sum(dim=1)    # [E,n,n]
-        dp_ref = ((m.hyai[1:] - m.hyai[:-1])[None, :, None, None] * P0
-                  + (m.hybi[1:] - m.hybi[:-1])[None, :, None, None]
-                  * ps_v[:, None])
-        d1 = torch.movedim(dp_star, 1, 3)             # [E,n,n,k]
-        d2 = torch.movedim(dp_ref, 1, 3)
-    with span("remap.health"):
-        health = dp_star.min() if general else torch.minimum(
-            dp_star.min(), ppm_fast_margin(d1, d2))
-        min_dp = m.tables.global_min(health)
+        proj_t = _tp(divdp_proj, E, nk)
+    dp_star, dp_ref, ps_v, min_dp = remap_levels_t(m, proj_t, dt_remap,
+                                                   plain=plain)
+    del proj_t
     with span("remap.ppm"):
-        # column layout for the PPM remap: [..., Q, nlev]
-        Qcol = torch.movedim(Qdp, (1, 2), (3, 4))     # [E,n,n,q,k]
-        remap = remap_q_ppm_general if general else remap_q_ppm
-        Qnew = remap(Qcol, d1, d2, alg=m.cfg.vert_remap_q_alg)
-        Qdp_out = torch.movedim(Qnew, (3, 4), (1, 2)).contiguous()
-    return Qdp_out, ps_v, dp_ref, min_dp
+        Qt = _tp(Qdp, E, nq * nk)
+        Qdp = None
+        Qt = remap_lanes_t(m, Qt, dp_star, dp_ref, plain=plain)
+        return _tp_back(Qt, shape).contiguous(), ps_v, min_dp
 
 
 # ---------------------------------------------------------------------------
@@ -753,8 +753,9 @@ def make_subcycle_fn(m: Model, diagnostics: bool = False,
                             m, Qdp, vn0, dt_q, eta, omg, plain=plain)
                     nstep = nstep + 1
                 with span("remap"):
-                    Qdp, ps_v, _, min_dp = vertical_remap(
-                        m, Qdp, divdp_proj, dt_remap)
+                    box, Qdp = [Qdp], None
+                    Qdp, ps_v, min_dp = vertical_remap(
+                        m, box, divdp_proj, dt_remap, plain=plain)
                 return Qdp, ps_v, nstep, min_dp
 
         return step

@@ -7,9 +7,10 @@ prim_advection_mod.F90:98 `remap_Q_ppm`, :221 `compute_ppm_grids`, :267
 -2..+2 cells), `ppm_fast_margin`, the health check that guards that
 window, and `remap_q_ppm_general`, the unbounded search of
 `ppm_search="general"` (the reference's walking loop, :159-173, as a
-count).  `remap_q_ppm` is the std-layout path's remap and the plain
-reference the T-layout remap kernel (`ops/remap.py`) is held against in
-the tests.
+count).  `remap_q_ppm` and `ppm_fast_margin` are the plain references
+that the remap kernel and the health kernel (`ops/remap.py`), which both
+pipelines run, are held against in the tests; `remap_q_ppm_general` is the
+general search of both pipelines (`model/core.py remap_lanes_t`).
 """
 
 from __future__ import annotations
